@@ -7,6 +7,12 @@ import pytest
 jax.config.update("jax_enable_x64", False)
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU; skips without one (run on "
+        "the card with: python -m pytest -m cuda tests/test_torch_cuda.py)")
+
+
 @pytest.fixture(scope="session")
 def rng_key():
     return jax.random.PRNGKey(0)
