@@ -7,34 +7,44 @@ Phases, in order; any failure (build, launch, tolerance) ends the run with
 a non-zero exit and no result line:
 
   1. card     the card's name and power limit, and the device count;
-  2. build    nvcc builds mriq, flash_attention and swiglu for sm_90a from
-              the sources in the checkout, all at once, and prints each
-              kernel's registers, shared memory and spills;
+  2. build    nvcc builds the five kernels (mriq, flash_attention, swiglu,
+              ssd, rglru) for sm_90a from the sources in the checkout, all
+              at once, and prints each kernel's registers, shared memory
+              and spills;
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the shapes the main path gives it; kernel, plain and library
-              times from CUDA events, and the card's least time (bound);
-              plus reduced qwen2-7b on the card (kernels, f32) against the
+              the shapes the main path gives it (flash_attention also at
+              recurrentgemma-9b's D=256 with its 2048 window; ssd also
+              against the token-by-token recurrence); kernel, plain and
+              library times from CUDA events, and the card's least time
+              (bound); plus reduced qwen2-7b, mamba2-1.3b and
+              recurrentgemma-9b on the card (kernels, f32) against the
               plain path on the CPU;
   4. MRI-Q    the paper's Fig. 5 at its size (64^3 voxels, 3072 k-space
               points): the plain version on the host CPU against the
               offloaded leg (H2D + kernel + D2H), each leg's Watt*seconds at
               the paper's measured R740 node points;
-  5. prefill  qwen2-7b at full width under the offload plan (attention and
-              MLP on the kernels), random weights from seeded generators on
-              the card: for each of three weight seeds, prefill of 2 x 512
-              tokens, then 8 decode steps, held against the teacher-forced
-              forward;
-  6. serve    ``ServeLoop`` (8 slots, max_seq 256) billing a
-              ``DecodeEnergyMeter`` at the accelerated R740 node point: 8
-              requests, 16 new tokens each;
-  7. counts   the kernels' launch counts over phases 4-6 (the main path),
-              each of which must be > 0;
-  8. profile  the same 8 requests served again under torch.profiler:
+  5. models   for each of qwen2-7b, mamba2-1.3b and recurrentgemma-9b at
+              full width under the offload plan (every site on the
+              kernels), random weights from seeded generators on the card,
+              one model at a time:
+              prefill  2 x 512 tokens (2 x 2560 for recurrentgemma-9b, past
+                       its 2048 window), then 8 decode steps, held against
+                       the teacher-forced forward (qwen2-7b for three weight
+                       seeds; mamba2-1.3b in f32 compute, its bf16 run held
+                       to finite logits, see PREFILL_F32);
+              serve    ``ServeLoop`` (8 slots, max_seq 256) billing a
+                       ``DecodeEnergyMeter`` at the accelerated R740 node
+                       point: 8 requests, 16 new tokens each;
+              counts   the kernels' launch counts over that model's path
+                       (MRI-Q belongs to qwen2-7b's), each kernel of the
+                       path > 0;
+  6. profile  qwen2-7b's 8 requests served again under torch.profiler:
               kernels by device time, the CUDA runtime calls by host time,
               and the device's busy share of that window.
 
-It exits non-zero when no CUDA device is visible, and when the port's
-package is not beside it.  The last line is
+It takes about 4 minutes on the H100, the kernels' build included.  It
+exits non-zero when no CUDA device is visible, and when the port's package
+is not beside it.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -63,11 +73,24 @@ PEAK_BYTES = 3.35e12    # B/s, HBM3
 BF16_TOL = (1e-5, 2.0 ** -8)
 BF16_TOL_TEXT = "atol 1e-5 + rtol 2^-8, vs the plain version in f32"
 
-#: prefill + decode of qwen2-7b against the full forward, as a share of
-#: max|logit|: about 3x the largest reading on H100 runs (PERF.md, section 6)
-PREFILL_TOL = 0.045
-#: weight seeds of the prefill check; the serve phase uses the first
+#: prefill + decode against the full forward, as a share of max|logit|:
+#: about 3x the largest reading on H100 runs (PERF.md, section 6: 0.0159,
+#: 0.0086 in f32, 0.0179)
+PREFILL_TOL = {"qwen2-7b": 0.045, "mamba2-1.3b": 0.025,
+               "recurrentgemma-9b": 0.05}
+#: archs whose check runs in f32 compute: mamba2-1.3b's random-init stack
+#: amplifies last-bit differences through its 48 layers, so in bf16 its
+#: prefill + decode and its forward (SSD chunks of 256 and of 130) part
+#: completely (0.88 of max|logit| on the H100 and on the CPU's plain
+#: path), while in f32 they agree (0.0086 on the H100).  Its bf16 run, the
+#: config's plan that serving uses, is held to finite logits.
+PREFILL_F32 = ("mamba2-1.3b",)
+#: weight seeds of qwen2-7b's prefill check; its serve phase uses the first
 PREFILL_SEEDS = (0, 1, 2)
+#: prompt length of each model's prefill check: recurrentgemma-9b's runs
+#: past its 2048 local-attention window
+PREFILL_LEN = {"qwen2-7b": 512, "mamba2-1.3b": 512,
+               "recurrentgemma-9b": 2560}
 
 SOURCES = {
     "mriq": ("src/repro_torch/kernels/csrc/mriq.cu",
@@ -76,7 +99,20 @@ SOURCES = {
                         "src/repro/kernels/flash_attention.py:71"),
     "swiglu": ("src/repro_torch/kernels/csrc/swiglu.cu",
                "src/repro/kernels/swiglu.py:43"),
+    "ssd": ("src/repro_torch/kernels/csrc/ssd.cu",
+            "src/repro/kernels/ssd.py:58"),
+    "rglru": ("src/repro_torch/kernels/csrc/rglru.cu",
+              "src/repro/kernels/rglru.py:40"),
 }
+#: mriq, ssd and rglru: no single PyTorch call computes the same function
+NO_LIBRARY = "none: no single PyTorch call computes it"
+#: the offload plan: every compute site on its kernel (bench_power.py)
+OFFLOAD = dict(attn_impl="pallas", mlp_impl="pallas", ssm_impl="pallas",
+               rglru_impl="pallas")
+#: the kernels each model's path must launch
+PATH_KERNELS = {"qwen2-7b": ("mriq", "flash_attention", "swiglu"),
+                "mamba2-1.3b": ("ssd",),
+                "recurrentgemma-9b": ("flash_attention", "rglru")}
 
 
 def log(msg: str) -> None:
@@ -99,10 +135,15 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, peak: float, nbytes: float) -> tuple[float, str]:
-    """The card's least time in ms for the work, and what bounds it."""
+def bound(flops: float, peak: float, nbytes: float) -> dict:
+    """The card's least time in ms for the work (the larger of its
+    operations at ``peak`` and its bytes at the HBM rate), what bounds it,
+    and which peak the operations were held to."""
     t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    by = "operations" if t_ops >= t_bytes else "bytes"
+    return {"bound_ms": max(t_ops, t_bytes), "bound_by": by,
+            "bound_peak": {PEAK_BF16: "bf16 989 TFLOP/s",
+                           PEAK_F32: "f32 67 TFLOP/s"}[peak]}
 
 
 def max_err(a, b) -> float:
@@ -172,46 +213,57 @@ def kernel_mriq(rows: dict) -> None:
     atol, rtol = 5e-4, 1e-4     # tests/test_kernels.py, mriq
     err = max(check("mriq qr", got[0], want[0], atol, rtol),
               check("mriq qi", got[1], want[1], atol, rtol))
-    b_ms, b_by = bound(16.0 * n * m, PEAK_F32, (3 * n + 4 * m + 2 * n) * 4)
+    bnd = bound(16.0 * n * m, PEAK_F32, (3 * n + 4 * m + 2 * n) * 4)
     rows["mriq"] = {
         "max_abs_err": err, "tol": f"atol {atol} + rtol {rtol}",
         "ms": cuda_ms(lambda: K.mriq_cuda(*args), reps=10),
         "plain_ms": cuda_ms(lambda: ref.mriq_ref(*args), reps=3),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+        **bnd, "library_ms": None, "library": NO_LIBRARY,
         "shape": f"N={n} M={m} f32"}
 
 
-def kernel_flash(rows: dict) -> None:
+def flash_case(s: int, hq: int, hkv: int, d: int, window: int, seed: int,
+               reps: int) -> dict:
     from repro_torch.kernels import flash_attention as K, ref
-    b, s, hq, hkv, d = 2, 512, 28, 4, 128
-    g = torch.Generator(device="cuda").manual_seed(1)
+    b = 2
+    g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn((b, s, h, d), generator=g, device="cuda",
                            dtype=torch.float32).to(torch.bfloat16)
                for h in (hq, hkv, hkv))
-    got = K.flash_attention_cuda(q, k, v, causal=True)
-    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), True)
-    err = check("flash_attention", got, want, *BF16_TOL)
-    # library yardstick: SDPA on (B,H,S,D) with the KV heads repeated
+    got = K.flash_attention_cuda(q, k, v, True, window)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), True,
+                                   window)
+    err = check(f"flash_attention D={d}", got, want, *BF16_TOL)
+    del want
+    # library yardstick: SDPA on (B,H,S,D) with the KV heads repeated (and
+    # the window as a boolean mask)
     qt = q.transpose(1, 2).contiguous()
     kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+    pos = torch.arange(s, device="cuda")
+    keep = pos[None, :] <= pos[:, None]
+    if window:
+        keep &= pos[:, None] - pos[None, :] < window
 
     def sdpa():
+        if window:
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
     sdpa_err = max_err(sdpa().transpose(1, 2), got)
-    pairs = s * (s + 1) // 2    # (q, k) pairs the causal mask keeps
+    pairs = int(keep.sum())     # (q, k) pairs the mask keeps
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
-    b_ms, b_by = bound(4.0 * b * hq * d * pairs, PEAK_BF16, nbytes)
-    rows["flash_attention"] = {
-        "max_abs_err": err, "tol": BF16_TOL_TEXT,
-        "ms": cuda_ms(lambda: K.flash_attention_cuda(q, k, v, True), 20),
-        "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v, True),
-                            20),
-        "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cuda_ms(sdpa, 20),
-        "library": "F.scaled_dot_product_attention, KV repeated",
-        "library_max_abs_err": sdpa_err,
-        "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={d} bf16 causal"}
+    bnd = bound(4.0 * b * hq * d * pairs, PEAK_BF16, nbytes)
+    mask = "causal" + (f" window {window}" if window else "")
+    return {"max_abs_err": err, "tol": BF16_TOL_TEXT,
+            "ms": cuda_ms(lambda: K.flash_attention_cuda(q, k, v, True,
+                                                         window), reps),
+            "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(
+                q, k, v, True, window), reps),
+            **bnd,
+            "library_ms": cuda_ms(sdpa, reps),
+            "library": "F.scaled_dot_product_attention, KV repeated",
+            "library_max_abs_err": sdpa_err,
+            "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={d} bf16 {mask}"}
 
 
 def swiglu_case(t: int, seed: int) -> dict:
@@ -229,12 +281,12 @@ def swiglu_case(t: int, seed: int) -> dict:
     want = ref.swiglu_ref(x.float(), wi.float(), wg.float(), wo.float())
     err = check(f"swiglu T={t}", got, want, *BF16_TOL)
     nbytes = (3 * d * f + 2 * t * d) * 2
-    b_ms, b_by = bound(6.0 * t * d * f, PEAK_BF16, nbytes)
+    bnd = bound(6.0 * t * d * f, PEAK_BF16, nbytes)
     reps = 20 if t <= 32 else 5
     return {"max_abs_err": err, "tol": BF16_TOL_TEXT,
             "ms": cuda_ms(lambda: K.swiglu_cuda(x, wi, wg, wo), reps),
             "plain_ms": cuda_ms(lambda: ref.swiglu_ref(x, wi, wg, wo), reps),
-            "bound_ms": b_ms, "bound_by": b_by,
+            **bnd,
             # the cuBLAS chain (silu(x@wg)*(x@wi))@wo, timed as a yardstick
             "library_ms": cuda_ms(
                 lambda: (F.silu(x @ wg) * (x @ wi)) @ wo, reps),
@@ -242,25 +294,116 @@ def swiglu_case(t: int, seed: int) -> dict:
             "shape": f"T={t} d={d} f={f} bf16"}
 
 
-def small_model_check() -> float:
-    """Reduced qwen2-7b, f32: the offload plan on the card (all three
-    kernels' model paths) against the plain path on the CPU."""
+#: the SSD check's shape: mamba2-1.3b's prefill of 2 x 512 tokens
+SSD_SHAPE = dict(b=2, s=512, h=64, p=64, n=128, chunk=256)
+#: the SSD kernel sums up to N + Q products in f32 in another order than the
+#: plain version (atol, as a share of max|plain|); a bf16 y also rounds once
+#: (rtol 2^-8), an f32 result is held at rtol 1e-4
+SSD_ATOL = 1e-4
+SSD_TOL_TEXT = ("atol 1e-4 x max|plain| + rtol 2^-8 (bf16 y) or 1e-4 (f32 "
+                "state), vs the plain version in f32")
+
+
+def ssd_inputs(seed: int, dtype, dt_shift: float = 0.0):
+    """Inputs as mamba2's prefill gives them: x = silu(.), dt = softplus(.)
+    (shifted down to make the decay slow), A = -exp(0.2 N(0,1))."""
+    b, s, h, p, n = (SSD_SHAPE[k] for k in "bshpn")
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device="cuda")
+    x = F.silu(randn(b, s, h, p)).to(dtype)
+    dt = F.softplus(randn(b, s, h) + dt_shift)
+    A = -torch.exp(0.2 * randn(h))
+    return x, dt, A, randn(b, s, n).to(dtype), randn(b, s, n).to(dtype)
+
+
+def check_ssd(name: str, got, want) -> float:
+    """y against y, state against state, at the SSD tolerance."""
+    err = 0.0
+    for part, g, w in zip(("y", "state"), got, want):
+        rtol = 2.0 ** -8 if g.dtype == torch.bfloat16 else 1e-4
+        atol = SSD_ATOL * float(w.float().abs().max())
+        err = max(err, check(f"{name} {part}", g, w, atol, rtol))
+    return err
+
+
+def kernel_ssd(rows: dict) -> None:
+    from repro_torch.kernels import ref, ssd as K
+    q = SSD_SHAPE["chunk"]
+    args = ssd_inputs(4, torch.bfloat16)
+    x, dt, A, Bm, Cm = args
+    f32 = (x.float(), dt, A, Bm.float(), Cm.float())
+    got = K.ssd_cuda(*args, q)
+    err = check_ssd("ssd vs plain", got, ref.ssd_ref(*f32, q))
+    # the token-by-token recurrence holds the chunk math where the JAX
+    # reference is NaN (chunk 256: cum spans far past 88); and, with dt
+    # small enough that the state carries across tiles and chunks, the f32
+    # kernel against it
+    err_rec = check_ssd("ssd vs recurrence", got, ref.ssd_scan_ref(*f32))
+    slow = ssd_inputs(5, torch.float32, dt_shift=-4.0)
+    err_slow = check_ssd("ssd f32 slow decay vs recurrence",
+                         K.ssd_cuda(*slow, q), ref.ssd_scan_ref(*slow))
+    b, s, h, p, n = x.shape + (Bm.shape[-1],)
+    chunks = s // q
+    pairs = q * (q + 1) // 2
+    flops = 2.0 * b * h * chunks * (pairs * (n + p) + 2 * q * p * n)
+    nbytes = (x.numel() * 2 + dt.numel() * 4 + A.numel() * 4
+              + (Bm.numel() + Cm.numel()) * 2 + x.numel() * 2
+              + b * h * p * n * 4)
+    bnd = bound(flops, PEAK_BF16, nbytes)
+    rows["ssd"] = {
+        "max_abs_err": err, "tol": SSD_TOL_TEXT,
+        "recurrence_max_abs_err": err_rec,
+        "slow_decay_f32_max_abs_err": err_slow,
+        "ms": cuda_ms(lambda: K.ssd_cuda(*args, q), 20),
+        "plain_ms": cuda_ms(lambda: ref.ssd_ref(*args, q), 5),
+        **bnd, "library_ms": None, "library": NO_LIBRARY,
+        "shape": f"B={b} S={s} H={h} P={p} N={n} chunk {q}, x/B/C/y bf16"}
+
+
+def kernel_rglru(rows: dict) -> None:
+    from repro_torch.kernels import ref, rglru as K
+    b, s, w = 2, 2560, 4096
+    g = torch.Generator(device="cuda").manual_seed(6)
+    # gates as the model makes them: a = exp(log_a) in (0.9, 0.999)^r
+    u = torch.empty(w, device="cuda").uniform_(0.9 ** 2, 0.999 ** 2,
+                                               generator=g)
+    lam = torch.log(torch.exp(-torch.log(u) / 16.0) - 1.0)
+    r = torch.sigmoid(torch.randn((b, s, w), generator=g, device="cuda"))
+    log_a = -8.0 * F.softplus(lam) * r
+    bb = torch.sqrt(1.0 - torch.exp(2.0 * log_a)) \
+        * torch.randn((b, s, w), generator=g, device="cuda")
+    got = K.rglru_cuda(log_a, bb)
+    atol, rtol = 2e-5, 2e-5         # tests/test_kernels.py, rglru
+    err = check("rglru", got, ref.rglru_ref(log_a, bb), atol, rtol)
+    bnd = bound(3.0 * b * s * w, PEAK_F32, 12.0 * b * s * w)
+    rows["rglru"] = {
+        "max_abs_err": err, "tol": f"atol {atol} + rtol {rtol}",
+        "ms": cuda_ms(lambda: K.rglru_cuda(log_a, bb), 20),
+        "plain_ms": cuda_ms(lambda: ref.rglru_ref(log_a, bb), 3),
+        **bnd, "library_ms": None, "library": NO_LIBRARY,
+        "shape": f"B={b} S={s} W={w} f32"}
+
+
+def small_model_check(arch: str) -> float:
+    """A reduced config in f32: the offload plan on the card (every
+    kernel's model path) against the plain path on the CPU."""
     import dataclasses
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
-    cfg = get_config("qwen2-7b", reduced=True)
+    cfg = get_config(arch, reduced=True)
     cfg = dataclasses.replace(cfg, plan=cfg.plan.replace(
         compute_dtype="float32", kv_cache_dtype="float32"))
     cpu = Model(cfg, cfg.plan.replace(attn_impl="xla"), device="cpu")
     params = cpu.init(torch.Generator().manual_seed(0))
-    gpu = Model(cfg, cfg.plan.replace(attn_impl="pallas", mlp_impl="pallas"),
-                device="cuda")
+    gpu = Model(cfg, cfg.plan.replace(**OFFLOAD), device="cuda")
     gparams = gpu.load(params.state_dict())
     toks = torch.from_numpy(np.random.default_rng(0).integers(
         0, cfg.vocab_size, (2, 48)).astype(np.int32))
     want = cpu.forward(params, {"tokens": toks})
     got = gpu.forward(gparams, {"tokens": toks.cuda()}).cpu()
-    return check("reduced qwen2-7b f32, card vs CPU", got, want, 1e-4, 1e-4)
+    return check(f"reduced {arch} f32, card vs CPU", got, want, 1e-4, 1e-4)
 
 
 def phase_kernels() -> dict:
@@ -268,22 +411,34 @@ def phase_kernels() -> dict:
     torch.backends.cudnn.allow_tf32 = False
     rows: dict = {}
     kernel_mriq(rows)
-    kernel_flash(rows)
+    rows["flash_attention"] = flash_case(512, 28, 4, 128, 0, seed=1, reps=20)
+    # recurrentgemma-9b's local attention
+    rows["flash_attention"]["local"] = flash_case(2560, 16, 1, 256, 2048,
+                                                  seed=7, reps=5)
     rows["swiglu"] = swiglu_case(8, seed=2)
     rows["swiglu"]["prefill"] = swiglu_case(1024, seed=3)
+    kernel_ssd(rows)
+    kernel_rglru(rows)
     for name, r in rows.items():
-        for label, rr in (("", r), (" prefill", r.get("prefill"))):
-            if rr is None:
+        for label in ("", "prefill", "local"):
+            rr = r.get(label, r) if label else r
+            if label and label not in r:
                 continue
             lib = "null" if rr["library_ms"] is None \
                 else f"{rr['library_ms']:.4f}"
-            log(f"[kernels] {name}{label} ({rr['shape']}): max_err "
+            log(f"[kernels] {name} {label} ({rr['shape']}): max_err "
                 f"{rr['max_abs_err']:.3e} tol {rr['tol']} kernel_ms "
                 f"{rr['ms']:.4f} plain_ms {rr['plain_ms']:.4f} library_ms "
-                f"{lib} bound_ms {rr['bound_ms']:.4f} ({rr['bound_by']})")
-    err = small_model_check()
-    log(f"[kernels] reduced qwen2-7b f32 logits, card (kernels) vs CPU "
-        f"(plain): max_err {err:.3e} tol atol 1e-4 + rtol 1e-4")
+                f"{lib} bound_ms {rr['bound_ms']:.4f} ({rr['bound_by']}; "
+                f"operations at {rr['bound_peak']})")
+    log(f"[kernels] ssd vs the token-by-token recurrence: max_err "
+        f"{rows['ssd']['recurrence_max_abs_err']:.3e}; f32 with slow decay "
+        f"{rows['ssd']['slow_decay_f32_max_abs_err']:.3e} (tol "
+        f"{SSD_TOL_TEXT})")
+    for arch in PATH_KERNELS:
+        err = small_model_check(arch)
+        log(f"[kernels] reduced {arch} f32 logits, card (kernels) vs CPU "
+            f"(plain): max_err {err:.3e} tol atol 1e-4 + rtol 1e-4")
     return rows
 
 
@@ -329,16 +484,18 @@ def init_weights(model, seed: int):
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device="cuda").manual_seed(seed))
     torch.cuda.synchronize()
-    log(f"[prefill] qwen2-7b weights, seed {seed} "
+    log(f"[prefill] {model.cfg.name} weights, seed {seed} "
         f"({model.cfg.param_count() / 1e9:.2f} B params, "
         f"{model.plan.param_dtype}) initialised on the card in "
         f"{time.perf_counter() - t0:.2f} s")
     return params
 
 
-def phase_prefill(model, params) -> dict:
+def phase_prefill(model, params, held: bool = True) -> dict:
+    """Prefill, then 8 decode steps, against the teacher-forced forward;
+    ``held=False`` reads the errors and holds the logits to be finite."""
     cfg = model.cfg
-    b, s, n_dec = 2, 512, 8
+    b, s, n_dec = 2, PREFILL_LEN[cfg.name], 8
     rng = np.random.default_rng(1)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + n_dec))
                             .astype(np.int32)).cuda()
@@ -355,22 +512,31 @@ def phase_prefill(model, params) -> dict:
         steps.append(lg)
     dec = torch.stack(steps, dim=1)
     full = model.forward(params, {"tokens": toks})
-    scale = float(full.float().abs().max())
-    # bf16 roundings taken in another order along 28 residual layers (flash
-    # in f32 at prefill, naive bf16 attention at decode)
-    tol = PREFILL_TOL * scale
-    e_pre = check("prefill last logits vs forward", last, full[:, s - 1],
-                  tol, 0.0)
-    e_dec = check("decode logits vs forward", dec, full[:, s:], tol, 0.0)
+    for name, t in (("forward", full), ("prefill", last), ("decode", dec)):
+        if not torch.isfinite(t).all():
+            raise RuntimeError(f"{cfg.name}: non-finite {name} logits")
+    scale = float(full.abs().max())
+    if held:
+        # roundings taken in another order along the residual layers (the
+        # kernels compute in f32 at prefill; decode runs the stock ops)
+        tol = PREFILL_TOL[cfg.name] * scale
+        e_pre = check("prefill last logits vs forward", last,
+                      full[:, s - 1], tol, 0.0)
+        e_dec = check("decode logits vs forward", dec, full[:, s:], tol, 0.0)
+        held_by = f"tol {tol:.4f} = {PREFILL_TOL[cfg.name]} max|logit|"
+    else:
+        tol = None
+        e_pre = max_err(last, full[:, s - 1])
+        e_dec = max_err(dec, full[:, s:])
+        held_by = "not held: finite only"
     agree = float((dec.argmax(-1) == full[:, s:].argmax(-1)).float().mean())
     out = {"prefill_s": t_prefill, "prefill_err": e_pre, "decode_err": e_dec,
            "logit_scale": scale, "tol": tol, "argmax_agree": agree}
-    log(f"[prefill] qwen2-7b full width, 2x{s} tokens: prefill "
-        f"{t_prefill:.4f} s; max|logit| {scale:.3f}; prefill err "
-        f"{e_pre:.4f}, decode err {e_dec:.4f} = "
-        f"{max(e_pre, e_dec) / scale:.4f} max|logit| (tol {tol:.4f} = "
-        f"{PREFILL_TOL} max|logit|); decode argmax agrees with forward on "
-        f"{agree:.3f}")
+    log(f"[prefill] {cfg.name} full width, {model.plan.compute_dtype}, "
+        f"2x{s} tokens: prefill {t_prefill:.4f} s; max|logit| {scale:.3f}; "
+        f"prefill err {e_pre:.4f}, decode err {e_dec:.4f} = "
+        f"{max(e_pre, e_dec) / scale:.4f} max|logit| ({held_by}); decode "
+        f"argmax agrees with forward on {agree:.3f}")
     return out
 
 
@@ -419,7 +585,7 @@ def phase_serve(model, params) -> float:
            "requests": [{"rid": r.rid, "prompt": len(r.prompt),
                          "tokens": len(r.out), "prefill_ws": r.prefill_ws,
                          "decode_ws": r.decode_ws} for r in done]}
-    log(f"[serve] 8 requests, {n_tok} tokens in {wall:.3f} s "
+    log(f"[serve] {cfg.name}: 8 requests, {n_tok} tokens in {wall:.3f} s "
         f"({out['tokens_per_s']:.2f} tokens/s; {forced} prompt steps + "
         f"{loop.steps_done} decode steps, all 8 slots wide); "
         f"ledger {out['ledger_ws']:.3f} Ws at the accelerated R740 point; "
@@ -467,14 +633,51 @@ def profile_serve(model, params, wall_s: float) -> None:
             f"x{e.count:<6d} {e.key[:80]}")
 
 
+def run_path(arch: str, counters: dict, seeds=(0,), card=None) -> dict:
+    """One model's path under the offload plan: its weights on the card,
+    prefill + decode against the forward for each of ``seeds`` (the serve
+    phase keeps the first), then serving.  The launch counts are set to 0
+    just before and read just after; MRI-Q runs on qwen2-7b's path.
+    Returns the counts, the model and its weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    for k in counters.values():
+        k.launches = 0
+    if card is not None:
+        phase_mriq(card)
+    cfg = get_config(arch)
+    model = Model(cfg, cfg.plan.replace(**OFFLOAD))
+    torch.cuda.reset_peak_memory_stats()
+    params = None
+    for seed in reversed(seeds):        # ends on the serve phase's seed
+        params = None                   # one set of weights at a time
+        params = init_weights(model, seed)
+        if arch in PREFILL_F32:
+            phase_prefill(model.with_plan(model.plan.replace(
+                compute_dtype="float32")), params)
+            phase_prefill(model, params, held=False)
+        else:
+            phase_prefill(model, params)
+    log(f"[prefill] {arch} peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+    wall_s = phase_serve(model, params)
+    launches = {name: k.launches for name, k in counters.items()}
+    log(f"kernels {arch} " + json.dumps(launches))
+    missing = [k for k in PATH_KERNELS[arch] if not launches[k]]
+    if missing:
+        raise RuntimeError(f"{arch}: kernels of its path never launched: "
+                           f"{missing} ({launches})")
+    return {"launches": launches, "model": model, "params": params,
+            "wall_s": wall_s}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
     try:
-        from repro_torch.configs import get_config
-        from repro_torch.kernels import flash_attention, mriq, swiglu
-        from repro_torch.models.model import Model
+        from repro_torch.kernels import (flash_attention, mriq, rglru, ssd,
+                                         swiglu)
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing ({e})",
               file=sys.stderr)
@@ -485,27 +688,20 @@ def main() -> int:
     rows = phase_kernels()
 
     counters = {"mriq": mriq.KERNEL, "flash_attention": flash_attention.KERNEL,
-                "swiglu": swiglu.KERNEL}
-    for k in counters.values():         # the main path starts here
-        k.launches = 0
-    phase_mriq(card)
-    cfg = get_config("qwen2-7b")
-    plan = cfg.plan.replace(attn_impl="pallas", mlp_impl="pallas")
-    model = Model(cfg, plan)
-    torch.cuda.reset_peak_memory_stats()
-    for seed in reversed(PREFILL_SEEDS):    # ends on the serve phase's seed
-        params = None                       # one set of weights at a time
-        params = init_weights(model, seed)
-        phase_prefill(model, params)
-    log(f"[prefill] peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
-    wall_s = phase_serve(model, params)
-    launches = {name: k.launches for name, k in counters.items()}
-    log("kernels " + json.dumps(launches))      # the main path ends here
-    if not all(launches.values()):
-        raise RuntimeError(f"a kernel of the main path never launched: "
-                           f"{launches}")
-    profile_serve(model, params, wall_s)
+                "swiglu": swiglu.KERNEL, "ssd": ssd.KERNEL,
+                "rglru": rglru.KERNEL}
+    launches = dict.fromkeys(counters, 0)
+    for arch in PATH_KERNELS:           # one model's weights at a time
+        path = run_path(arch, counters,
+                        seeds=PREFILL_SEEDS if arch == "qwen2-7b" else (0,),
+                        card=card if arch == "qwen2-7b" else None)
+        for name, n in path["launches"].items():
+            launches[name] += n
+        if arch == "qwen2-7b":          # outside the counted path
+            profile_serve(path["model"], path["params"], path["wall_s"])
+        del path
+        torch.cuda.empty_cache()
+    log("kernels " + json.dumps(launches))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = []

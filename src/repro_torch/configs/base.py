@@ -23,6 +23,8 @@ from typing import Any, Optional
 #: destinations each compute site accepts
 ATTN_IMPLS = ("xla", "xla_chunked", "pallas")
 MLP_IMPLS = ("xla", "pallas")
+SSM_IMPLS = ("xla", "pallas")
+RGLRU_IMPLS = ("xla", "pallas")
 
 
 @dataclass(frozen=True)
@@ -35,6 +37,8 @@ class PlanConfig:
     # --- per-site destinations ("which loop goes to which device") ---------
     attn_impl: str = "xla_chunked"      # xla | xla_chunked | pallas
     mlp_impl: str = "xla"               # xla | pallas  (fused swiglu)
+    ssm_impl: str = "xla"               # xla | pallas  (SSD chunked kernel)
+    rglru_impl: str = "xla"             # xla | pallas  (RG-LRU scan kernel)
     attn_chunk: int = 1024              # kv-block size for chunked attention
 
     # --- numerics -----------------------------------------------------------
@@ -48,6 +52,11 @@ class PlanConfig:
                              f"{ATTN_IMPLS}")
         if self.mlp_impl not in MLP_IMPLS:
             raise ValueError(f"mlp_impl {self.mlp_impl!r} not in {MLP_IMPLS}")
+        if self.ssm_impl not in SSM_IMPLS:
+            raise ValueError(f"ssm_impl {self.ssm_impl!r} not in {SSM_IMPLS}")
+        if self.rglru_impl not in RGLRU_IMPLS:
+            raise ValueError(f"rglru_impl {self.rglru_impl!r} not in "
+                             f"{RGLRU_IMPLS}")
 
     def replace(self, **kw: Any) -> "PlanConfig":
         return replace(self, **kw)

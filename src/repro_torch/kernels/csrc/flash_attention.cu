@@ -16,24 +16,33 @@
 // 3.35 TB/s), so the card's bound is bytes.  This first version computes in
 // f32 on the CUDA cores (67 TFLOP/s), so it is bound by its own FMAs.
 //
+// At recurrentgemma-9b's local attention (B=2, S=T=2560, Hq=16, Hkv=1,
+// D=256, bf16, causal, window 2048) the mask keeps 3.1 M (q, k) pairs per
+// head: 103 GFLOP (104 us at the bf16 peak) against 89 MB moved (27 us), so
+// there the card's bound is operations.
+//
 // Design: one block of 256 threads per (64-query tile, q head, batch).  The
 // TPU's sequential kv axis becomes a loop inside the block over 64-key tiles;
 // tiles the causal or window mask empties are skipped (they would only add
 // terms that alpha = 0 wipes).  Q^T, K^T, V and P^T are staged in shared
-// memory as f32 (112 KB at D = 128, two blocks per SM).  Each thread owns a
-// 4x4 patch of the score tile and a 4x8 patch of acc (rows x head dims);
-// the 16 threads that share rows sit in one half-warp, so the row max and
-// row sum of the online softmax are half-warp shuffles and (m, l, alpha)
-// stay in registers.  Tensor-core mma.sync / wgmma come in a later version.
+// memory as f32.  Each thread owns a 4x4 patch of the score tile and a 4xDV
+// patch of acc (rows x head dims); the 16 threads that share rows sit in one
+// half-warp, so the row max and row sum of the online softmax are half-warp
+// shuffles and (m, l, alpha) stay in registers.  Two instances: DV = 8 for
+// D <= 128 (112 KB of staging at D = 128, two blocks per SM) and DV = 16 for
+// 128 < D <= 256, D a multiple of 16 (208 KB at D = 256, one block per SM,
+// twice the acc registers).  Tensor-core mma.sync / wgmma come in a later
+// version.
 #include "common.cuh"
 
 namespace {
 
-constexpr int BQ = 64, BK = 64, DMAX = 128, THREADS = 256;
+constexpr int BQ = 64, BK = 64, THREADS = 256;
 constexpr float NEG_INF = -1e30f;
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS, 2)
+// DV head dims per thread: 16 threads cover D <= 16 * DV
+template <typename T, int DV>
+__global__ void __launch_bounds__(THREADS, DV == 8 ? 2 : 1)
 attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const T* __restrict__ v, T* __restrict__ o, int S, int Tk,
             int Hq, int Hkv, int D, int causal, int window, float scale) {
@@ -45,11 +54,11 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   constexpr int NV = rt::Io<T>::N;
   const int tid = threadIdx.x;
-  const int rg = tid / 16, cg = tid % 16;  // rows rg*4.., cols cg*4.. / dims cg*8..
+  const int rg = tid / 16, cg = tid % 16;  // rows rg*4.., cols cg*4.. / dims cg*DV..
   const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
   const int vpr = D / NV;  // 16-byte vectors per row
-  const bool dims_live = cg * 8 < D;
+  const bool dims_live = cg * DV < D;
 
   // Q tile, transposed; rows past S load as zeros and are never stored
   for (int idx = tid; idx < BQ * vpr; idx += THREADS) {
@@ -60,13 +69,13 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int e = 0; e < NV; ++e) Qt[(dv + e) * BQ + r] = tmp[e];
   }
 
-  float m[4], l[4], acc[4][8];
+  float m[4], l[4], acc[4][DV];
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.f;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+    for (int j = 0; j < DV; ++j) acc[i][j] = 0.f;
   }
 
   const int n_kb = (Tk + BK - 1) / BK;
@@ -148,15 +157,15 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < 4; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j) acc[i][j] *= alpha[i];
+        for (int j = 0; j < DV; ++j) acc[i][j] *= alpha[i];
       for (int c = 0; c < BK; ++c) {
-        float pa[4], va[8];
+        float pa[4], va[DV];
         rt::lds<4>(&Pt[c * BQ + rg * 4], pa);
-        rt::lds<8>(&Vs[c * D + cg * 8], va);
+        rt::lds<DV>(&Vs[c * D + cg * DV], va);
 #pragma unroll
         for (int i = 0; i < 4; ++i)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(pa[i], va[j], acc[i][j]);
+          for (int j = 0; j < DV; ++j) acc[i][j] = fmaf(pa[i], va[j], acc[i][j]);
       }
     }
   }
@@ -166,29 +175,42 @@ attn_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int i = 0; i < 4; ++i) {
       const int qi = q0 + rg * 4 + i;
       if (qi >= S) continue;
-      float out[8];
+      float out[DV];
       const float den = fmaxf(l[i], 1e-30f);
 #pragma unroll
-      for (int j = 0; j < 8; ++j) out[j] = acc[i][j] / den;
-      rt::store8<T>(o + ((size_t)(b * S + qi) * Hq + h) * D + cg * 8, out);
+      for (int j = 0; j < DV; ++j) out[j] = acc[i][j] / den;
+      T* dst = o + ((size_t)(b * S + qi) * Hq + h) * D + cg * DV;
+#pragma unroll
+      for (int j = 0; j < DV; j += 8) rt::store8<T>(dst + j, out + j);
     }
   }
 }
 
-template <typename T>
+template <typename T, int DV>
 cudaError_t run(const void* q, const void* k, const void* v, void* o, int B,
                 int S, int Tk, int Hq, int Hkv, int D, int causal, int window,
                 float scale, cudaStream_t st) {
   const int smem = (2 * D * BQ + BK * D + BK * BQ) * (int)sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
-      attn_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      attn_kernel<T, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   const dim3 grid((S + BQ - 1) / BQ, Hq, B);
-  attn_kernel<T><<<grid, THREADS, smem, st>>>(
+  attn_kernel<T, DV><<<grid, THREADS, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<T*>(o), S, Tk, Hq, Hkv, D, causal,
       window, scale);
   return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t run_d(const void* q, const void* k, const void* v, void* o, int B,
+                  int S, int Tk, int Hq, int Hkv, int D, int causal,
+                  int window, float scale, cudaStream_t st) {
+  if (D <= 128)
+    return run<T, 8>(q, k, v, o, B, S, Tk, Hq, Hkv, D, causal, window, scale,
+                     st);
+  return run<T, 16>(q, k, v, o, B, S, Tk, Hq, Hkv, D, causal, window, scale,
+                    st);
 }
 
 }  // namespace
@@ -198,17 +220,18 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int Tk, int Hq, int Hkv, int D,
                                       int causal, int window, float scale,
                                       int dtype, void* stream) {
-  if (D <= 0 || D > DMAX || D % 8 || Hkv <= 0 || Hq % Hkv)
+  if (D <= 0 || D % 8 || D > 256 || (D > 128 && D % 16) || Hkv <= 0 ||
+      Hq % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0) return 0;
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (dtype == rt::kBF16)
-    e = run<__nv_bfloat16>(q, k, v, o, B, S, Tk, Hq, Hkv, D, causal, window,
-                           scale, st);
+    e = run_d<__nv_bfloat16>(q, k, v, o, B, S, Tk, Hq, Hkv, D, causal,
+                             window, scale, st);
   else if (dtype == rt::kF32)
-    e = run<float>(q, k, v, o, B, S, Tk, Hq, Hkv, D, causal, window, scale,
-                   st);
+    e = run_d<float>(q, k, v, o, B, S, Tk, Hq, Hkv, D, causal, window, scale,
+                     st);
   else
     e = cudaErrorInvalidValue;
   return static_cast<int>(e);

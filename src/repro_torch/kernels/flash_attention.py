@@ -19,7 +19,7 @@ KERNEL = CudaKernel("flash_attention",
                     [c_ptr] * 4 + [c_int] * 8 + [ctypes.c_float, c_int,
                                                  c_ptr])
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
 
 
 def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0):
@@ -36,9 +36,9 @@ def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0):
                          f"not fit q {tuple(q.shape)}")
     if hq % hkv:
         raise ValueError(f"{hq} q heads do not group over {hkv} kv heads")
-    if d % 8 or d > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {d} must be a multiple of 8 and at "
-                         f"most {MAX_HEAD_DIM}")
+    if d % 8 or d > MAX_HEAD_DIM or (d > 128 and d % 16):
+        raise ValueError(f"head dim {d} must be a multiple of 8 up to 128, "
+                         f"or of 16 up to {MAX_HEAD_DIM}")
     o = torch.empty_like(q)
     KERNEL.launch(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                   b, s, t, hq, hkv, d, int(causal), int(window),

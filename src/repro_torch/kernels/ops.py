@@ -18,7 +18,18 @@ from repro_torch.device import same_device
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.mriq import mriq_cuda
+from repro_torch.kernels.rglru import rglru_cuda
+from repro_torch.kernels.ssd import ssd_cuda
 from repro_torch.kernels.swiglu import swiglu_cuda
+
+
+def _blk(n: int, target: int) -> int:
+    """Largest divisor of n that is <= target (the reference's block
+    rule, which picks the SSD chunk)."""
+    b = min(target, n)
+    while n % b:
+        b -= 1
+    return b
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
@@ -48,3 +59,23 @@ def fused_swiglu(x, wi, wg, wo):
         y = swiglu_cuda(xf.contiguous(), wi.contiguous(), wg.contiguous(),
                         wo.contiguous())
     return y.reshape(*lead, d)
+
+
+def rglru(log_a, b):
+    """log_a, b (B,S,W) -> h (B,S,W) f32: h_t = exp(log_a_t) h_{t-1} +
+    b_t."""
+    if same_device(log_a, b).type == "cpu":
+        return _ref.rglru_ref(log_a, b)
+    return rglru_cuda(log_a.float().contiguous(), b.float().contiguous())
+
+
+def ssd(x, dt, A, Bm, Cm, chunk: int = 128):
+    """Mamba2 SSD: x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,N) ->
+    (y (B,S,H,P) in x's dtype, final state (B,H,P,N) f32), in chunks of
+    ``_blk(S, chunk)`` positions as the reference picks them."""
+    q = _blk(x.shape[1], chunk)
+    if same_device(x, dt, A, Bm, Cm).type == "cpu":
+        return _ref.ssd_ref(x, dt, A, Bm, Cm, q)
+    return ssd_cuda(x.contiguous(), dt.float().contiguous(),
+                    A.float().contiguous(), Bm.to(x.dtype).contiguous(),
+                    Cm.to(x.dtype).contiguous(), q)

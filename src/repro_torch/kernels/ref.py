@@ -13,6 +13,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.layers import attention_naive
+from repro_torch.models.rglru import rglru_scan
+from repro_torch.models.ssm import ssd_chunked
 
 #: voxels per pass of ``mriq_ref``: bounds its (rows, M) intermediates to a
 #: few hundred MB at the paper's M = 3072; rows are independent, so the
@@ -49,3 +51,34 @@ def swiglu_ref(x, wi, wg, wo):
     h = x @ wi
     g = x @ wg
     return (F.silu(g) * h) @ wo
+
+
+def rglru_ref(log_a, b):
+    """h_t = exp(log_a_t) h_{t-1} + b_t over axis 1, f32. (B,S,W)."""
+    return rglru_scan(log_a, b)
+
+
+def ssd_ref(x, dt, A, Bm, Cm, chunk=64):
+    """Mamba2 SSD, chunked and masked before the exponential.  Returns
+    (y (B,S,H,P) in x's dtype, final state (B,H,P,N) f32)."""
+    return ssd_chunked(x, dt, A, Bm, Cm, chunk)
+
+
+def ssd_scan_ref(x, dt, A, Bm, Cm):
+    """Mamba2 SSD token by token, in f32: ``h = exp(dt·A)·h + dt·x⊗B``,
+    ``y = C·h`` (the decode step's arithmetic over a whole sequence).
+    Returns (y in x's dtype, final state), as ``ssd_ref`` does; it holds
+    the chunk math of ``ssd_ref`` and of the kernel where the JAX
+    reference is not finite."""
+    b, s, h, p = x.shape
+    state = torch.zeros((b, h, p, Bm.shape[-1]), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for t in range(s):
+        dtt = dt[:, t].float()                                     # (B,H)
+        da = torch.exp(dtt * A.float())
+        dbx = torch.einsum("bhp,bn,bh->bhpn", x[:, t].float(),
+                           Bm[:, t].float(), dtt)
+        state = da[..., None, None] * state + dbx
+        ys.append(torch.einsum("bn,bhpn->bhp", Cm[:, t].float(), state))
+    return torch.stack(ys, dim=1).to(x.dtype), state

@@ -1,0 +1,47 @@
+"""Mamba2 SSD chunked scan on the H100: binding of ``csrc/ssd.cu``.
+
+Counterpart of ``repro.kernels.ssd`` (the Pallas TPU kernel
+``ssd_pallas``).  One block per (head, batch) walks the chunks in order
+with the (P, N) state in shared memory; within a chunk, 64-row query tiles
+meet the key tiles below the diagonal, masked before the exponential.  See
+the source for its bound and design.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.kernels._build import (CudaKernel, c_int, c_ptr,
+                                        check_operand, stream_of)
+
+KERNEL = CudaKernel("ssd", [c_ptr] * 7 + [c_int] * 7 + [c_ptr])
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+MAX_HEAD_DIM = 128
+
+
+def ssd_cuda(x, dt, A, Bm, Cm, chunk: int):
+    """x (B,S,H,P) and Bm/Cm (B,S,N) in one dtype, dt (B,S,H) and A (H,)
+    f32 -> (y (B,S,H,P) in x's dtype, final state (B,H,P,N) f32), chunks
+    of ``chunk`` positions (the last one may be shorter)."""
+    dev = x.device
+    check_operand("x", x, 4, tuple(DTYPES), dev)
+    check_operand("dt", dt, 3, (torch.float32,), dev)
+    check_operand("A", A, 1, (torch.float32,), dev)
+    check_operand("Bm", Bm, 3, (x.dtype,), dev)
+    check_operand("Cm", Cm, 3, (x.dtype,), dev)
+    b, s, h, p = x.shape
+    n = Bm.shape[-1]
+    if dt.shape != (b, s, h) or A.shape != (h,) or Bm.shape != (b, s, n) \
+            or Cm.shape != Bm.shape:
+        raise ValueError(f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, Bm "
+                         f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)} do not "
+                         f"fit x {tuple(x.shape)}")
+    if p > MAX_HEAD_DIM:
+        raise ValueError(f"head dim {p} is over {MAX_HEAD_DIM}")
+    if s < 1 or chunk < 1:
+        raise ValueError(f"sequence {s} and chunk {chunk} must be >= 1")
+    y = torch.empty_like(x)
+    state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+    KERNEL.launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
+                  Cm.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, h, p,
+                  n, min(chunk, s), DTYPES[x.dtype], stream_of(x))
+    return y, state

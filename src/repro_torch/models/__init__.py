@@ -1,2 +1,3 @@
-"""Dense transformer model of the port: ``layers``, ``transformer`` (the
-layer stack) and ``model`` (the facade)."""
+"""The port's models: ``layers`` (attention, MLP, norms), ``ssm`` (the
+mamba2 block), ``rglru`` (the RG-LRU block), ``transformer`` (the layer
+stack) and ``model`` (the facade)."""

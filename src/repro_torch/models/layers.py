@@ -1,14 +1,17 @@
 """Core transformer layers: norms, RoPE, GQA attention, MLP.
 
-Counterpart of ``repro.models.layers`` (dense parts: RMSNorm and SwiGLU,
-which every ported arch uses; LayerNorm, GELU, sliding windows and MoE come
-with the families that need them).  Every temporal-mixing site reads its
-destination from the plan:
+Counterpart of ``repro.models.layers`` for the ported archs: RMSNorm,
+RoPE, grouped attention with causal and sliding-window masks, and the
+SwiGLU and GELU MLPs (LayerNorm and MoE wait for the archs that need them,
+ROADMAP.md).  Every temporal-mixing site reads its destination from the
+plan:
 
   attention : 'xla' (naive), 'xla_chunked' (online softmax over KV chunks),
               'pallas' (the flash-attention kernel; prefill only, as in the
               reference — decode takes naive or chunked)
-  mlp       : 'xla' (stock ops), 'pallas' (the fused SwiGLU kernel)
+  mlp       : 'xla' (stock ops), 'pallas' (the fused SwiGLU kernel; the
+              GELU MLP has no kernel and always runs stock ops, as in the
+              reference)
 
 Parameters are plain tensors in dicts keyed as in the reference pytree, in
 ``plan.param_dtype``; compute runs in ``plan.compute_dtype`` with f32
@@ -168,11 +171,14 @@ def _kv_dequant(q, s, dtype):
 
 
 def run_attention(params, x, cfg: ArchConfig, plan: PlanConfig, positions,
-                  cache=None, decode=False):
-    """Temporal-mixing site (full attention). Returns (y, cache).
+                  cache=None, decode=False, window=0):
+    """Temporal-mixing site. Returns (y, cache).
 
-    The KV cache is a rolling buffer of length T with an explicit per-slot
-    position array ``kpos`` (-1 = empty); decode writes slot ``pos % T``.  Keys are
+    ``window`` > 0 is local attention: a query sees the ``window`` latest
+    positions up to its own.  The KV cache is a rolling buffer of length T
+    (``min(window, seq)`` for local attention, the full sequence otherwise)
+    with an explicit per-slot position array ``kpos`` (-1 = empty); decode
+    writes slot ``pos % T``.  Keys are
     stored post-RoPE.  An int8 cache (detected by its dtype) stores
     per-(pos, head) absmax-quantized values + f32 scales.  ``positions`` is
     a (S,) int tensor; in decode it holds the one position of the whole
@@ -206,21 +212,21 @@ def run_attention(params, x, cfg: ArchConfig, plan: PlanConfig, positions,
         kpos_m = torch.where(valid, kpos, pos + t + 10)  # fails causal rule
         qpos = pos.expand(q.shape[1])
         if plan.attn_impl == "xla" or t <= plan.attn_chunk:
-            o = attention_naive(q, kk, vv, qpos, kpos_m, True)
+            o = attention_naive(q, kk, vv, qpos, kpos_m, True, window)
         else:
-            o = attention_chunked(q, kk, vv, qpos, kpos_m, True,
-                                  chunk=plan.attn_chunk)
+            o = attention_chunked(q, kk, vv, qpos, kpos_m, True, window,
+                                  plan.attn_chunk)
     else:
         kpos = qpos = positions
         impl = plan.attn_impl
         if impl == "pallas":
             from repro_torch.kernels import ops as kops
-            o = kops.flash_attention(q, k, v, causal=causal)
+            o = kops.flash_attention(q, k, v, causal=causal, window=window)
         elif impl == "xla_chunked" and x.shape[1] > plan.attn_chunk:
-            o = attention_chunked(q, k, v, qpos, kpos, causal,
-                                  chunk=plan.attn_chunk)
+            o = attention_chunked(q, k, v, qpos, kpos, causal, window,
+                                  plan.attn_chunk)
         else:
-            o = attention_naive(q, k, v, qpos, kpos, causal)
+            o = attention_naive(q, k, v, qpos, kpos, causal, window)
         if cache is not None:  # prefill: keep the last T positions
             t = cache["k"].shape[1]
             s = k.shape[1]
@@ -250,8 +256,15 @@ def run_attention(params, x, cfg: ArchConfig, plan: PlanConfig, positions,
 
 
 def run_mlp(params, x, cfg: ArchConfig, plan: PlanConfig):
-    """SwiGLU MLP (the ported archs' activation)."""
+    """SwiGLU MLP, or for ``act="gelu"`` the GELU MLP with biases (tanh
+    approximation, ``jax.nn.gelu``'s default)."""
     dt = cdtype(plan)
+    if cfg.act == "gelu":
+        h = torch.einsum("bsd,df->bsf", x, params["wi"].to(dt)) \
+            + params["bi"].to(dt)
+        h = F.gelu(h, approximate="tanh")
+        return torch.einsum("bsf,fd->bsd", h, params["wo"].to(dt)) \
+            + params["bo"].to(dt)
     if plan.mlp_impl == "pallas":
         from repro_torch.kernels import ops as kops
         return kops.fused_swiglu(x, params["wi"].to(dt), params["wg"].to(dt),

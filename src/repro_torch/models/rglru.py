@@ -1,0 +1,118 @@
+"""RG-LRU recurrent block (RecurrentGemma / Griffin, arXiv:2402.19427).
+
+Counterpart of ``repro.models.rglru``.  Block: x -> {linear -> causal conv
+-> RG-LRU} * {linear -> GELU} -> out proj.  RG-LRU per channel:
+
+    r_t = sigmoid(W_a x_t + b_a)
+    i_t = sigmoid(W_x x_t + b_x)
+    log_a_t = -c * softplus(Lambda) * r_t          (c = 8)
+    h_t = exp(log_a_t) * h_{t-1} + sqrt(1 - exp(2 log_a_t)) * (i_t * x_t)
+
+Prefill and the forward pass run the linear recurrence over the whole
+sequence: ``rglru_scan`` in stock ops (a loop over time where the reference
+takes an associative scan: the same recurrence), or the RG-LRU kernel under
+the 'pallas' destination of ``plan.rglru_impl``.  Decode is the one-step
+recurrence on a (B, W) f32 state, in stock ops, as in the reference.
+
+The cache (``init_rglru_cache``) is updated in place: decode and prefill
+write the new conv window and state into the dict's tensors.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ArchConfig, PlanConfig
+from repro_torch.models.layers import cdtype
+from repro_torch.models.ssm import _causal_conv
+
+RG_C = 8.0
+
+
+def rglru_spec(cfg: ArchConfig) -> dict:
+    """param -> (shape, init rule) of one RG-LRU block, with the
+    reference's shapes and scales (``rglru.init_rglru_block``).  ``lam``
+    takes the rule ``("lru_lambda",)``: Lambda = softplus^-1(-log(u)/16)
+    for u ~ U(0.9², 0.999²), so that a = exp(-8·softplus(Lambda)) lies in
+    (0.9, 0.999) as in Griffin."""
+    d, w, k = cfg.d_model, cfg.lru_width, cfg.ssm_conv
+    s_d, s_w = 1.0 / math.sqrt(d), 1.0 / math.sqrt(w)
+    return {"w_in_x": ((d, w), ("normal", s_d)),
+            "w_in_g": ((d, w), ("normal", s_d)),
+            "conv_w": ((k, w), ("normal", 1.0 / math.sqrt(k))),
+            "conv_b": ((w,), ("zeros",)),
+            "w_a": ((w, w), ("normal", s_w)),
+            "b_a": ((w,), ("zeros",)),
+            "w_x": ((w, w), ("normal", s_w)),
+            "b_x": ((w,), ("zeros",)),
+            "lam": ((w,), ("lru_lambda",)),
+            "w_out": ((w, d), ("normal", s_w))}
+
+
+def lru_lambda_(p: torch.Tensor, generator: torch.Generator) -> None:
+    """Fill ``p`` by the ``lru_lambda`` rule (see ``rglru_spec``)."""
+    u = torch.empty_like(p, dtype=torch.float32).uniform_(
+        0.9 ** 2, 0.999 ** 2, generator=generator)
+    p.copy_(torch.log(torch.exp(-torch.log(u) / (2 * RG_C)) - 1.0))
+
+
+def rglru_gates(params, x):
+    """x (B,S,W) -> (log_a, b), both f32: h_t = exp(log_a_t) h + b_t.  The
+    gate matmuls run in f32, as in the reference."""
+    x32 = x.float()
+    r = torch.sigmoid(x32 @ params["w_a"].float() + params["b_a"].float())
+    i = torch.sigmoid(x32 @ params["w_x"].float() + params["b_x"].float())
+    log_a = -RG_C * F.softplus(params["lam"].float()) * r
+    b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
+        * (i * x32)
+    return log_a, b
+
+
+def rglru_scan(log_a, b):
+    """The linear recurrence h_t = exp(log_a_t) h_{t-1} + b_t over axis 1,
+    from h = 0, in f32. (B,S,W) -> h (B,S,W)."""
+    a = torch.exp(log_a.float())
+    b = b.float()
+    h = torch.empty_like(b)
+    prev = torch.zeros_like(b[:, 0])
+    for t in range(b.shape[1]):
+        prev = torch.addcmul(b[:, t], a[:, t], prev)
+        h[:, t] = prev
+    return h
+
+
+def run_rglru_block(params, x, cfg: ArchConfig, plan: PlanConfig, cache=None,
+                    decode=False):
+    """Returns (y, cache). cache = {'conv': (B,K-1,W), 'h': (B,W) f32},
+    written in place (prefill and decode); None in the forward pass."""
+    dt_c = cdtype(plan)
+    gate = F.gelu(torch.einsum("bsd,dw->bsw", x, params["w_in_g"].to(dt_c)),
+                  approximate="tanh")
+    u = torch.einsum("bsd,dw->bsw", x, params["w_in_x"].to(dt_c))
+    u, new_conv = _causal_conv(u, params["conv_w"].to(dt_c),
+                               params["conv_b"].to(dt_c),
+                               cache["conv"] if cache is not None else None)
+    log_a, b = rglru_gates(params, u)
+    if decode:
+        h = torch.exp(log_a[:, 0]) * cache["h"] + b[:, 0]
+        hs = h[:, None]
+    elif plan.rglru_impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        hs = kops.rglru(log_a, b)
+    else:
+        hs = rglru_scan(log_a, b)
+    if cache is not None:
+        cache["conv"].copy_(new_conv)
+        cache["h"].copy_(hs[:, -1])
+    y = hs.to(dt_c) * gate
+    return torch.einsum("bsw,wd->bsd", y, params["w_out"].to(dt_c)), cache
+
+
+def init_rglru_cache(cfg: ArchConfig, batch: int,
+                     device: torch.device) -> dict:
+    return {"conv": torch.zeros((batch, cfg.ssm_conv - 1, cfg.lru_width),
+                                dtype=torch.float32, device=device),
+            "h": torch.zeros((batch, cfg.lru_width), dtype=torch.float32,
+                             device=device)}

@@ -1,17 +1,18 @@
-"""The layer stack: an ``nn.Module`` of dense attention layers.
+"""The layer stack: an ``nn.Module`` of attention, mamba2 and RG-LRU layers.
 
-Counterpart of ``repro.models.transformer`` for the dense family.  The
-reference scans one stacked parameter unit with ``lax.scan``; here the
-layers are an ``nn.ModuleList`` walked by a Python loop.  Each layer's
-parameters are ``nn.ParameterDict``s keyed as in the reference pytree
-(``norm1``, ``mixer``, ``norm2``, ``mlp``), so the functions of
-``models.layers`` read them exactly as the reference reads its dicts, and
-``repro_torch.convert`` maps the pytree onto ``state_dict`` keys one to one.
+Counterpart of ``repro.models.transformer``.  The reference scans one
+stacked parameter unit (the arch's layer pattern, e.g. (rec, rec, attn))
+with ``lax.scan`` and unrolls a tail; here the layers are an
+``nn.ModuleList`` in the same order (``cfg.layer_kinds()``: unit-major,
+then the tail) walked by a Python loop.  Each layer's parameters are
+``nn.ParameterDict``s keyed as in the reference pytree (``norm1``,
+``mixer`` and, except in an ``ssm`` layer, ``norm2`` and ``mlp``), so the
+functions of ``models.layers``, ``models.ssm`` and ``models.rglru`` read
+them exactly as the reference reads its dicts, and ``repro_torch.convert``
+maps the pytree onto ``state_dict`` keys one to one.
 
-Layer kinds ``ssm`` (mamba2) and ``rec`` (recurrentgemma), MoE layers,
-the audio/vision front ends, LayerNorm and GELU raise
-``NotImplementedError``: their model families are later slices of the
-port.
+MoE layers, the audio/vision front ends and LayerNorm raise
+``NotImplementedError``: their archs are later slices of the port.
 """
 from __future__ import annotations
 
@@ -23,20 +24,29 @@ from torch import nn
 
 from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
+from repro_torch.models import rglru as R
+from repro_torch.models import ssm as S
 
-# init rules: ("normal", scale) | ("zeros",) | ("ones",)
+# init rules: ("normal", scale) | ("zeros",) | ("ones",) | ("lru_lambda",)
 
 
 def _norm_spec(cfg: ArchConfig) -> dict:
     return {"scale": ((cfg.d_model,), ("ones",))}
 
 
-def layer_spec(cfg: ArchConfig) -> dict:
-    """name -> {param -> (shape, init rule)} for one attention layer, with
-    the reference's shapes and scales (``layers.init_attention``,
-    ``layers.init_mlp``)."""
+def _mlp_spec(cfg: ArchConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    if cfg.act == "gelu":
+        return {"wi": ((d, f), ("normal", s_in)), "bi": ((f,), ("zeros",)),
+                "wo": ((f, d), ("normal", s_out)), "bo": ((d,), ("zeros",))}
+    return {"wi": ((d, f), ("normal", s_in)),
+            "wg": ((d, f), ("normal", s_in)),
+            "wo": ((f, d), ("normal", s_out))}
+
+
+def _attn_spec(cfg: ArchConfig) -> dict:
     d, hq, hkv, dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
-    f = cfg.d_ff
     s_in = 1.0 / math.sqrt(d)
     mixer = {"wq": ((d, hq, dh), ("normal", s_in)),
              "wk": ((d, hkv, dh), ("normal", s_in)),
@@ -45,25 +55,36 @@ def layer_spec(cfg: ArchConfig) -> dict:
     if cfg.qkv_bias:
         mixer.update(bq=((hq, dh), ("zeros",)), bk=((hkv, dh), ("zeros",)),
                      bv=((hkv, dh), ("zeros",)))
-    mlp = {"wi": ((d, f), ("normal", s_in)),
-           "wg": ((d, f), ("normal", s_in)),
-           "wo": ((f, d), ("normal", 1.0 / math.sqrt(f)))}
+    return mixer
+
+
+def layer_spec(cfg: ArchConfig, kind: str) -> dict:
+    """name -> {param -> (shape, init rule)} for one layer of ``kind``,
+    with the reference's shapes and scales (``transformer.init_layer``)."""
+    if kind == "ssm":
+        return {"norm1": _norm_spec(cfg), "mixer": S.mamba2_spec(cfg)}
+    if kind == "attn":
+        mixer = _attn_spec(cfg)
+    elif kind == "rec":
+        mixer = R.rglru_spec(cfg)
+    else:
+        raise ValueError(kind)
     return {"norm1": _norm_spec(cfg), "mixer": mixer,
-            "norm2": _norm_spec(cfg), "mlp": mlp}
+            "norm2": _norm_spec(cfg), "mlp": _mlp_spec(cfg)}
+
+
+def attn_window(cfg: ArchConfig) -> int:
+    """The local-attention window of the arch's attention layers (0: full
+    attention)."""
+    return cfg.local_window if cfg.family == "hybrid" else 0
 
 
 def check_supported(cfg: ArchConfig) -> None:
-    kinds = set(cfg.layer_kinds())
-    if kinds != {"attn"}:
-        raise NotImplementedError(
-            f"layer kinds {sorted(kinds - {'attn'})} are not ported yet "
-            f"(ROADMAP.md, port queue: ssd with mamba2, rglru with "
-            f"recurrentgemma)")
     if cfg.moe is not None and cfg.family == "moe":
         raise NotImplementedError(
             "MoE layers are not ported yet (ROADMAP.md, port queue: MoE)")
     if cfg.frontend != "none" or cfg.norm != "rmsnorm" \
-            or cfg.act != "swiglu":
+            or cfg.act not in ("swiglu", "gelu"):
         raise NotImplementedError(
             f"frontend {cfg.frontend!r}, norm {cfg.norm!r} and act "
             f"{cfg.act!r} are not ported yet (ROADMAP.md, port queue)")
@@ -75,10 +96,11 @@ def _param(shape, dtype, device) -> nn.Parameter:
 
 
 class Layer(nn.Module):
-    def __init__(self, cfg: ArchConfig, device: torch.device):
+    def __init__(self, cfg: ArchConfig, kind: str, device: torch.device):
         super().__init__()
+        self.kind = kind
         dt = L.pdtype(cfg.plan)
-        for name, params in layer_spec(cfg).items():
+        for name, params in layer_spec(cfg, kind).items():
             setattr(self, name, nn.ParameterDict(
                 {k: _param(shape, dt, device)
                  for k, (shape, _) in params.items()}))
@@ -101,20 +123,21 @@ class Transformer(nn.Module):
              for k, (shape, _) in _norm_spec(cfg).items()})
         if not cfg.tie_embeddings:
             self.lm_head = _param((d, v), dt, device)
-        self.layers = nn.ModuleList(Layer(cfg, device)
-                                    for _ in range(cfg.n_layers))
+        self.layers = nn.ModuleList(Layer(cfg, kind, device)
+                                    for kind in cfg.layer_kinds())
 
     @torch.no_grad()
     def init_(self, generator: torch.Generator) -> "Transformer":
-        """Normal x the reference's scales, biases 0, norm scales 1,
-        generated directly on the parameters' device (no host copy)."""
+        """Normal x the reference's scales, biases 0, norm scales 1, RG-LRU
+        Lambdas by their own rule, generated directly on the parameters'
+        device (no host copy)."""
         cfg = self.cfg
         rules = {"embed": ("normal", 0.02),
                  "lm_head": ("normal", 1.0 / math.sqrt(cfg.d_model))}
         for k, (_, rule) in _norm_spec(cfg).items():
             rules[f"final_norm.{k}"] = rule
-        for i in range(cfg.n_layers):
-            for name, params in layer_spec(cfg).items():
+        for i, kind in enumerate(cfg.layer_kinds()):
+            for name, params in layer_spec(cfg, kind).items():
                 for k, (_, rule) in params.items():
                     rules[f"layers.{i}.{name}.{k}"] = rule
         for name, p in self.named_parameters():
@@ -124,21 +147,33 @@ class Transformer(nn.Module):
                         .normal_(generator=generator).mul_(rule[1]))
             elif rule[0] == "ones":
                 p.fill_(1.0)
+            elif rule[0] == "lru_lambda":
+                R.lru_lambda_(p, generator)
             else:
                 p.zero_()
         return self
 
 
-def init_layer_cache(cfg: ArchConfig, batch: int, seq_len: int,
+def init_layer_cache(cfg: ArchConfig, kind: str, batch: int, seq_len: int,
                      device: torch.device) -> dict:
+    """One layer's cache: a rolling KV buffer for ``attn`` (kv dtype from
+    ``cfg.plan``; ``min(window, seq_len)`` long for local attention), the
+    conv window and state for ``rec`` and ``ssm``."""
+    if kind == "rec":
+        return R.init_rglru_cache(cfg, batch, device)
+    if kind == "ssm":
+        return S.init_ssm_cache(cfg, batch, device)
+    if kind != "attn":
+        raise ValueError(kind)
     dtype = L.dtype_of(cfg.plan.kv_cache_dtype)
-    shp = (batch, seq_len, cfg.n_kv_heads, cfg.d_head)
+    window = attn_window(cfg)
+    t = min(window, seq_len) if window else seq_len
+    shp = (batch, t, cfg.n_kv_heads, cfg.d_head)
     out = {"k": torch.zeros(shp, dtype=dtype, device=device),
            "v": torch.zeros(shp, dtype=dtype, device=device),
-           "kpos": torch.full((seq_len,), -1, dtype=torch.int32,
-                              device=device)}
+           "kpos": torch.full((t,), -1, dtype=torch.int32, device=device)}
     if dtype == torch.int8:
-        sshp = (batch, seq_len, cfg.n_kv_heads, 1)
+        sshp = (batch, t, cfg.n_kv_heads, 1)
         out["k_scale"] = torch.zeros(sshp, dtype=torch.float32,
                                      device=device)
         out["v_scale"] = torch.zeros(sshp, dtype=torch.float32,
@@ -148,18 +183,23 @@ def init_layer_cache(cfg: ArchConfig, batch: int, seq_len: int,
 
 def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
                device: torch.device) -> list:
-    """One rolling KV cache dict per layer (kv dtype from ``cfg.plan``, as
-    in the reference)."""
+    """One cache dict per layer, in the layers' order."""
     check_supported(cfg)
-    return [init_layer_cache(cfg, batch, seq_len, device)
-            for _ in range(cfg.n_layers)]
+    return [init_layer_cache(cfg, kind, batch, seq_len, device)
+            for kind in cfg.layer_kinds()]
 
 
 def apply_layer(p: Layer, x, cfg: ArchConfig, plan: PlanConfig, positions,
                 cache, decode: bool):
     h = L.apply_norm(p.norm1, x, cfg)
-    mix, cache = L.run_attention(p.mixer, h, cfg, plan, positions, cache,
-                                 decode)
+    if p.kind == "ssm":
+        mix, cache = S.run_mamba2(p.mixer, h, cfg, plan, cache, decode)
+        return x + mix, cache
+    if p.kind == "rec":
+        mix, cache = R.run_rglru_block(p.mixer, h, cfg, plan, cache, decode)
+    else:
+        mix, cache = L.run_attention(p.mixer, h, cfg, plan, positions, cache,
+                                     decode, attn_window(cfg))
     x = x + mix
     h = L.apply_norm(p.norm2, x, cfg)
     return x + L.run_mlp(p.mlp, h, cfg, plan), cache

@@ -21,6 +21,8 @@ from repro_torch.configs import get_config
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import mriq as MQ
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rglru as RG
+from repro_torch.kernels import ssd as SD
 from repro_torch.kernels import swiglu as SG
 from repro_torch.models.model import Model
 
@@ -75,6 +77,77 @@ def test_flash_kernel(cuda, dtype, hq, hkv, causal, window, s, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv", [(16, 1), (4, 2)])
+@pytest.mark.parametrize("causal,window", [(True, 0), (True, 96),
+                                           (False, 40)])
+@pytest.mark.parametrize("s,d", [(200, 256), (70, 144)])
+def test_flash_kernel_wide_heads(cuda, dtype, hq, hkv, causal, window, s, d):
+    """Head dims over 128 (recurrentgemma-9b's 256) take the kernel's
+    second instance; the sliding window skips whole key tiles."""
+    rng = np.random.default_rng(s + d + hq)
+    q = _randn(rng, (2, s, hq, d), dtype)
+    k = _randn(rng, (2, s, hkv, d), dtype)
+    v = _randn(rng, (2, s, hkv, d), dtype)
+    o = FA.flash_attention_cuda(q, k, v, causal, window)
+    o0 = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal,
+                                 window)
+    torch.testing.assert_close(o.float(), o0, **TOL[dtype])
+
+
+def _ssd_inputs(rng, b, s, h, p, n, dtype, dt_shift=0.0):
+    x = _randn(rng, (b, s, h, p), dtype)
+    dt = torch.nn.functional.softplus(_randn(rng, (b, s, h)) + dt_shift)
+    A = -torch.exp(_randn(rng, (h,), scale=0.2))
+    return (x, dt, A, _randn(rng, (b, s, n), dtype),
+            _randn(rng, (b, s, n), dtype))
+
+
+def _ssd_close(got, want):
+    """Sums of up to N + Q f32 products in another order (atol 1e-4 x the
+    largest value); a bf16 y also rounds once (rtol 2^-8)."""
+    for g, w in zip(got, want):
+        rtol = 2.0 ** -8 if g.dtype == torch.bfloat16 else 1e-4
+        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
+                                   atol=1e-4 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,chunk", [(64, 16), (130, 130), (520, 130),
+                                     (300, 256), (257, 64), (7, 256)])
+@pytest.mark.parametrize("p,n", [(64, 128), (16, 16), (8, 4), (24, 36)])
+def test_ssd_kernel(cuda, dtype, s, chunk, p, n):
+    """Whole and ragged chunks (130 = two 64-row tiles + 2; 300 = 256 + a
+    short chunk), head dims that are not multiples of 16."""
+    rng = np.random.default_rng(s + p + n)
+    args = _ssd_inputs(rng, 2, s, 3, p, n, dtype)
+    f32 = [a.float() for a in args]
+    got = SD.ssd_cuda(*args, chunk)
+    assert got[0].dtype == dtype and got[1].dtype == torch.float32
+    _ssd_close(got, ref.ssd_ref(*f32, chunk) if s % chunk == 0
+               else ref.ssd_scan_ref(*f32))
+
+
+@pytest.mark.parametrize("chunk", [32, 64, 256])
+def test_ssd_kernel_against_the_recurrence(cuda, chunk):
+    """Slow decay: the state carries across key tiles and chunks."""
+    rng = np.random.default_rng(chunk)
+    args = _ssd_inputs(rng, 2, 512, 4, 64, 128, torch.float32, -4.0)
+    _ssd_close(SD.ssd_cuda(*args, chunk), ref.ssd_scan_ref(*args))
+
+
+@pytest.mark.parametrize("b,s,w", [(2, 64, 96), (1, 37, 4096),
+                                   (3, 500, 130)])
+def test_rglru_kernel(cuda, b, s, w):
+    rng = np.random.default_rng(s + w)
+    log_a = -torch.abs(_randn(rng, (b, s, w))) * 0.2
+    bb = _randn(rng, (b, s, w), scale=0.5)
+    h = RG.rglru_cuda(log_a, bb)
+    torch.testing.assert_close(h, ref.rglru_ref(log_a, bb), atol=2e-5,
+                               rtol=2e-5)
+    assert bool((h.abs() <= bb.abs().cumsum(1) + 1e-4).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,d,f", [(1, 16, 32), (8, 32, 64), (37, 24, 48),
                                    (128, 64, 160), (300, 72, 200)])
 def test_swiglu_kernel(cuda, dtype, t, d, f):
@@ -91,15 +164,18 @@ def test_swiglu_kernel(cuda, dtype, t, d, f):
 
 def test_ops_launch_the_kernels_and_count(cuda):
     rng = np.random.default_rng(0)
-    before = (MQ.KERNEL.launches, FA.KERNEL.launches, SG.KERNEL.launches)
+    kernels = (MQ.KERNEL, FA.KERNEL, SG.KERNEL, SD.KERNEL, RG.KERNEL)
+    before = [k.launches for k in kernels]
     k = [_randn(rng, (16,)) for _ in range(4)]
     ops.mriq(*k, *[_randn(rng, (32,)) for _ in range(3)])
     q = _randn(rng, (1, 16, 2, 8))
     ops.flash_attention(q, q[:, :, :1], q[:, :, :1])
     ops.fused_swiglu(_randn(rng, (2, 3, 8)), _randn(rng, (8, 16)),
                      _randn(rng, (8, 16)), _randn(rng, (16, 8)))
-    after = (MQ.KERNEL.launches, FA.KERNEL.launches, SG.KERNEL.launches)
-    assert [a - b for a, b in zip(after, before)] == [1, 1, 1]
+    ops.ssd(*_ssd_inputs(rng, 1, 24, 2, 8, 4, torch.bfloat16), chunk=16)
+    ops.rglru(-torch.abs(_randn(rng, (1, 9, 8))), _randn(rng, (1, 9, 8)))
+    after = [k.launches for k in kernels]
+    assert [a - b for a, b in zip(after, before)] == [1, 1, 1, 1, 1]
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
@@ -120,18 +196,38 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError):          # not contiguous
         SG.swiglu_cuda(_randn(rng, (8, 4)).T, _randn(rng, (8, 16)),
                        _randn(rng, (8, 16)), _randn(rng, (16, 8)))
+    with pytest.raises(ValueError):          # D over 128, not a multiple of 16
+        w = _randn(rng, (1, 8, 1, 136))
+        FA.flash_attention_cuda(w, w, w)
+    args = _ssd_inputs(rng, 1, 16, 2, 8, 4, torch.float32)
+    with pytest.raises(TypeError):           # dt must be f32
+        SD.ssd_cuda(args[0], args[1].bfloat16(), *args[2:], 8)
+    with pytest.raises(ValueError):          # head dim over 128
+        SD.ssd_cuda(_randn(rng, (1, 16, 2, 136)), *args[1:], 8)
+    with pytest.raises(TypeError):           # f32 only
+        RG.rglru_cuda(args[3].bfloat16(), args[4].bfloat16())
 
 
 def test_reduced_qwen2_slice_on_the_card(cuda):
-    """Reduced qwen2-7b, f32: the offload plan on the card matches the
+    _reduced_on_the_card("qwen2-7b")
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_reduced_recurrent_archs_on_the_card(cuda, arch):
+    _reduced_on_the_card(arch)
+
+
+def _reduced_on_the_card(arch):
+    """A reduced config, f32: the offload plan on the card matches the
     plain path on the CPU (1e-4), and prefill + decode on the card match
     its own forward (1e-3, as tests/test_decode_consistency.py)."""
-    cfg = get_config("qwen2-7b", reduced=True)
+    cfg = get_config(arch, reduced=True)
     cfg = dataclasses.replace(cfg, plan=cfg.plan.replace(
         compute_dtype="float32", kv_cache_dtype="float32"))
     cpu = Model(cfg, cfg.plan.replace(attn_impl="xla"), device="cpu")
     params = cpu.init(torch.Generator().manual_seed(0))
-    gpu = Model(cfg, cfg.plan.replace(attn_impl="pallas", mlp_impl="pallas"),
+    gpu = Model(cfg, cfg.plan.replace(attn_impl="pallas", mlp_impl="pallas",
+                                      ssm_impl="pallas", rglru_impl="pallas"),
                 device="cuda")
     gparams = gpu.load(params.state_dict())
     toks = torch.from_numpy(np.random.default_rng(1).integers(

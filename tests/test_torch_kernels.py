@@ -3,8 +3,9 @@ interpret mode, as tests/test_kernels.py runs them) and the jnp oracles.
 
 Inputs come from numpy seeds and go through both packages.  Tolerances are
 tests/test_kernels.py's: mriq atol 5e-4 rtol 1e-4; flash 2e-5 (f32) and
-2e-2 (bf16); swiglu 2e-5.  On CPU tensors the public wrappers run the plain
-versions and never launch (or build) a kernel.
+2e-2 (bf16); swiglu 2e-5; rglru 2e-5; ssd 1e-4, and 2e-4 across chunk
+sizes.  On CPU tensors the public wrappers run the plain versions and
+never launch (or build) a kernel.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -15,13 +16,17 @@ from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.mriq import mriq_pallas
+from repro.kernels.rglru import rglru_pallas
+from repro.kernels.ssd import ssd_pallas
 from repro.kernels.swiglu import swiglu_pallas
 from repro_torch.kernels import flash_attention as FA
 from repro_torch.kernels import mriq as MQ
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels import rglru as RG
+from repro_torch.kernels import ssd as SD
 from repro_torch.kernels import swiglu as SG
 
-KERNELS = (MQ.KERNEL, FA.KERNEL, SG.KERNEL)
+KERNELS = (MQ.KERNEL, FA.KERNEL, SG.KERNEL, SD.KERNEL, RG.KERNEL)
 
 
 def _np(rng, shape, scale=1.0):
@@ -126,6 +131,91 @@ def test_fused_swiglu_flattens_leading_dims():
 
 
 # ---------------------------------------------------------------------------
+# RG-LRU
+# ---------------------------------------------------------------------------
+
+def _rglru_inputs(rng, b, s, w, decay=0.2, scale=0.5):
+    return (-np.abs(_np(rng, (b, s, w))) * decay, _np(rng, (b, s, w), scale))
+
+
+@pytest.mark.parametrize("s,w,bt,bw", [(32, 64, 8, 16), (64, 128, 16, 128),
+                                       (128, 96, 32, 32)])
+def test_rglru_plain_matches_pallas_and_oracle(s, w, bt, bw):
+    log_a, b = _rglru_inputs(np.random.default_rng(s), 2, s, w)
+    h = ops.rglru(_t(log_a), _t(b))
+    assert h.dtype == torch.float32
+    ja, jb = jnp.asarray(log_a), jnp.asarray(b)
+    for want in (rglru_pallas(ja, jb, block_w=bw, block_t=bt),
+                 jref.rglru_ref(ja, jb), jops.rglru(ja, jb)):
+        _close(h, want, (2e-5, 2e-5))
+
+
+@pytest.mark.parametrize("seed", range(5))
+@pytest.mark.parametrize("s", [16, 64])
+def test_rglru_plain_decay_bound(seed, s):
+    """|h| <= cumsum|b| for log_a < 0 (a contraction), as
+    tests/test_kernels.py's property test."""
+    rng = np.random.default_rng(seed)
+    log_a = -np.abs(_np(rng, (1, s, 16))) - 1e-3
+    b = _np(rng, (1, s, 16))
+    h = ops.rglru(_t(log_a), _t(b))
+    assert bool((h.abs() <= _t(np.cumsum(np.abs(b), axis=1)) + 1e-4).all())
+
+
+# ---------------------------------------------------------------------------
+# SSD (mamba2)
+# ---------------------------------------------------------------------------
+
+def _ssd_inputs(rng, b, s, h, p, n, a_scale=0.2, dt_scale=1.0):
+    x = _np(rng, (b, s, h, p))
+    dt = (np.log1p(np.exp(_np(rng, (b, s, h)))) * dt_scale).astype(
+        np.float32)
+    A = -np.exp(_np(rng, (h,), a_scale)).astype(np.float32)
+    return x, dt, A, _np(rng, (b, s, n)), _np(rng, (b, s, n))
+
+
+@pytest.mark.parametrize("s,chunk", [(32, 8), (64, 16), (128, 64)])
+def test_ssd_plain_matches_pallas_and_oracle(s, chunk):
+    # dt halved: at chunk 64 a chunk's |sum dt*A| can pass 88, where the
+    # JAX reference's exp-then-mask gives NaN (fault C1, test_torch_ssm.py)
+    args = _ssd_inputs(np.random.default_rng(s), 2, s, 3, 8, 4, dt_scale=0.5)
+    y, hs = ops.ssd(*map(_t, args), chunk=chunk)
+    assert y.dtype == hs.dtype == torch.float32 and hs.shape == (2, 3, 8, 4)
+    jargs = [jnp.asarray(a) for a in args]
+    for want in (ssd_pallas(*jargs, chunk=chunk),
+                 jref.ssd_ref(*jargs, chunk=chunk),
+                 jops.ssd(*jargs, chunk=chunk)):
+        _close(y, want[0], (1e-4, 1e-4))
+        _close(hs, want[1], (1e-4, 1e-4))
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("chunk", [4, 8, 16, 32])
+def test_ssd_plain_chunk_invariance(seed, chunk):
+    """The chunk size must not change the result (tests/test_kernels.py's
+    property test, against the JAX reference in one chunk)."""
+    args = _ssd_inputs(np.random.default_rng(seed), 1, 32, 2, 4, 4, 0.1)
+    y, hs = ops.ssd(*map(_t, args), chunk=chunk)
+    y0, hs0 = jref.ssd_ref(*map(jnp.asarray, args), chunk=32)
+    _close(y, y0, (2e-4, 2e-4))
+    _close(hs, hs0, (2e-4, 2e-4))
+
+
+def test_ssd_scan_ref_is_the_chunked_scan_token_by_token():
+    args = [_t(a) for a in _ssd_inputs(np.random.default_rng(9), 2, 48, 3,
+                                       8, 4)]
+    for got, want in zip(ref.ssd_scan_ref(*args), ref.ssd_ref(*args, 16)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+def test_ssd_picks_the_reference_chunk():
+    """``ops.ssd`` chunks by ``_blk`` (520 tokens at chunk 256 -> 130, as
+    the kernel route of the reference), ``ssd_ref`` by gcd."""
+    assert ops._blk(520, 256) == 130 and ops._blk(512, 256) == 256
+    assert ops._blk(7, 256) == 7 and ops._blk(40, 16) == 10
+
+
+# ---------------------------------------------------------------------------
 # Dispatch and argument checks
 # ---------------------------------------------------------------------------
 
@@ -137,7 +227,9 @@ def test_cpu_path_leaves_the_launch_counters_alone():
     ops.flash_attention(q, q, q)
     ops.fused_swiglu(_t(_np(rng, (4, 8))), _t(_np(rng, (8, 8))),
                      _t(_np(rng, (8, 8))), _t(_np(rng, (8, 8))))
-    assert [k.launches for k in KERNELS] == before == [0, 0, 0]
+    ops.ssd(*map(_t, _ssd_inputs(rng, 1, 16, 2, 4, 4)), chunk=8)
+    ops.rglru(*map(_t, _rglru_inputs(rng, 1, 8, 4)))
+    assert [k.launches for k in KERNELS] == before == [0] * 5
     assert all(k._fn is None for k in KERNELS)       # nothing built/loaded
 
 
@@ -146,7 +238,10 @@ def test_cpu_path_leaves_the_launch_counters_alone():
                                       t((1, 8, 2, 8))),
     lambda t: SG.swiglu_cuda(t((4, 8)), t((8, 8)), t((8, 8)), t((8, 8))),
     lambda t: MQ.mriq_cuda(*[t((8,)) for _ in range(7)]),
-], ids=["flash_attention", "swiglu", "mriq"])
+    lambda t: SD.ssd_cuda(t((1, 8, 2, 4)), t((1, 8, 2)), t((2,)),
+                          t((1, 8, 4)), t((1, 8, 4)), 8),
+    lambda t: RG.rglru_cuda(t((1, 8, 4)), t((1, 8, 4))),
+], ids=["flash_attention", "swiglu", "mriq", "ssd", "rglru"])
 def test_kernel_wrappers_refuse_cpu_tensors(call):
     with pytest.raises(ValueError, match="must lie on"):
         call(lambda shape: torch.zeros(shape))
@@ -160,3 +255,10 @@ def test_ops_refuse_tensors_on_different_devices():
         ops.fused_swiglu(torch.zeros((4, 8)), torch.zeros((8, 8)),
                          torch.zeros((8, 8), device="meta"),
                          torch.zeros((8, 8)))
+    with pytest.raises(ValueError, match="different devices"):
+        ops.rglru(torch.zeros((1, 4, 8)), torch.zeros((1, 4, 8),
+                                                      device="meta"))
+    x = torch.zeros((1, 8, 2, 4))
+    with pytest.raises(ValueError, match="different devices"):
+        ops.ssd(x, torch.zeros((1, 8, 2)), torch.zeros((2,), device="meta"),
+                torch.zeros((1, 8, 4)), torch.zeros((1, 8, 4)))

@@ -129,7 +129,7 @@ def test_kv_quant_roundtrip_matches():
 
 def _cache_pair(jc, tc, batch, seq):
     return (JT.init_layer_cache(jc, "attn", batch, seq),
-            T.init_layer_cache(tc, batch, seq, torch.device("cpu")))
+            T.init_layer_cache(tc, "attn", batch, seq, torch.device("cpu")))
 
 
 def _cache_close(tcache, jcache):
@@ -207,6 +207,61 @@ def test_run_mlp(impl, tokens):
     want = JL.run_mlp({k: jnp.asarray(v) for k, v in p.items()},
                       jnp.asarray(x), jc, jc.plan)
     _close(got, want)
+
+
+@pytest.mark.parametrize("tokens", [1, 9])
+def test_run_mlp_gelu(tokens):
+    """recurrentgemma-9b's GELU MLP (tanh approximation, jax.nn.gelu's
+    default) with non-zero biases; the plan's mlp_impl does not reach it."""
+    for impl in ("xla", "pallas"):
+        jc, tc = _cfgs("recurrentgemma-9b", mlp_impl=impl)
+        rng = np.random.default_rng(8)
+        d, f = jc.d_model, jc.d_ff
+        p = {"wi": _np(rng, (d, f), d ** -0.5), "bi": _np(rng, (f,), 0.3),
+             "wo": _np(rng, (f, d), f ** -0.5), "bo": _np(rng, (d,), 0.3)}
+        x = _np(rng, (2, tokens, d), 2.0)
+        got = L.run_mlp({k: torch.from_numpy(v) for k, v in p.items()},
+                        torch.from_numpy(x), tc, tc.plan)
+        want = JL.run_mlp({k: jnp.asarray(v) for k, v in p.items()},
+                          jnp.asarray(x), jc, jc.plan)
+        _close(got, want)
+
+
+@pytest.mark.parametrize("impl", ["xla", "xla_chunked", "pallas"])
+def test_run_attention_window_prefill_then_decode(impl):
+    """Local attention (recurrentgemma-9b's layout: 1 kv head): a window
+    of 6 over a prefill of 20 keeps the last 6 positions in a 6-slot cache,
+    then decode rolls it past its length."""
+    jc, tc = _cfgs("recurrentgemma-9b", attn_impl=impl, attn_chunk=4)
+    rng = np.random.default_rng(9)
+    d, hq, hkv, dh = jc.d_model, jc.n_heads, jc.n_kv_heads, jc.d_head
+    p = {"wq": _np(rng, (d, hq, dh), d ** -0.5),
+         "wk": _np(rng, (d, hkv, dh), d ** -0.5),
+         "wv": _np(rng, (d, hkv, dh), d ** -0.5),
+         "wo": _np(rng, (hq, dh, d), (hq * dh) ** -0.5)}
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    tp = {k: torch.from_numpy(v) for k, v in p.items()}
+    b, s, window = 2, 20, 6
+    jcache, tcache = _cache_pair(jc, tc, b, window)
+    x = _np(rng, (b, s, d))
+    pos = np.arange(s, dtype=np.int32)
+    jy, jcache = JL.run_attention(jp, jnp.asarray(x), jc, jc.plan,
+                                  jnp.asarray(pos), jcache, window=window)
+    ty, tcache = L.run_attention(tp, torch.from_numpy(x), tc, tc.plan,
+                                 torch.from_numpy(pos), tcache,
+                                 window=window)
+    _close(ty, jy)
+    _cache_close(tcache, jcache)
+    for q in range(s, s + 8):
+        xs = _np(rng, (b, 1, d))
+        jy, jcache = JL.run_attention(jp, jnp.asarray(xs), jc, jc.plan,
+                                      jnp.asarray([q], jnp.int32), jcache,
+                                      decode=True, window=window)
+        ty, tcache = L.run_attention(tp, torch.from_numpy(xs), tc, tc.plan,
+                                     torch.tensor([q], dtype=torch.int32),
+                                     tcache, decode=True, window=window)
+        _close(ty, jy, atol=2e-5, rtol=2e-5)
+        _cache_close(tcache, jcache)
 
 
 def test_run_moe_names_the_roadmap_item():

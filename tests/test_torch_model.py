@@ -4,7 +4,12 @@
 Tolerances: f32 compute, 1e-4 on the logits (sums taken in another order);
 bf16 compute, 5% of the largest logit — bf16 keeps 8 bits (2^-8 = 0.4%), the
 two frameworks round at different places and the differences compound
-through the layers (measured: 1.3-1.4% on these configs).
+through the layers (measured: 1.3-1.7% on qwen2-7b and recurrentgemma-9b).
+Reduced mamba2-1.3b amplifies last-bit differences far more: the
+reference's own bf16 logits lie 11-35% of max|logit| from its f32 logits
+(weight seeds 0-5), so there the port's bf16 logits are held to that gap,
+measured in the test (and each bf16 layer, given the same input, to
+2^-6 in tests/test_torch_ssm.py).
 """
 import dataclasses
 
@@ -19,9 +24,16 @@ from repro.models import transformer as JT
 from repro.models.model import Model as JModel
 from repro_torch.configs import MoEConfig, get_config, list_archs
 from repro_torch.convert import params_from_jax
+from repro_torch.models import transformer as T
 from repro_torch.models.model import Model
 
-ARCHS = ["tiny-test", "qwen2-7b"]
+ARCHS = ["tiny-test", "qwen2-7b", "mamba2-1.3b", "recurrentgemma-9b"]
+#: archs whose reference bf16 logits lie further than 5% from its own f32
+#: logits (module docstring)
+BF16_SENSITIVE = {"mamba2-1.3b"}
+#: every compute site on its kernel (the plain versions on the CPU)
+OFFLOAD = dict(attn_impl="pallas", mlp_impl="pallas", ssm_impl="pallas",
+               rglru_impl="pallas")
 
 
 def _f32(cfg):
@@ -44,9 +56,22 @@ def _tokens(cfg, shape, seed=1):
         0, cfg.vocab_size, shape).astype(np.int32)
 
 
+def _logit_tol(arch, f32, jcfg, jp, toks, want):
+    if f32:
+        return dict(atol=1e-4, rtol=1e-4)
+    atol = 0.05 * np.abs(want).max()
+    if arch in BF16_SENSITIVE:
+        jf = dataclasses.replace(jcfg, plan=jcfg.plan.replace(
+            compute_dtype="float32"))
+        ref32 = np.asarray(JT.forward(jp, {"tokens": jnp.asarray(toks)}, jf,
+                                      jf.plan)[0])
+        atol = max(atol, float(np.abs(want - ref32).max()))
+    return dict(atol=atol, rtol=0)
+
+
 def test_registry_holds_the_ported_archs():
-    assert list_archs() == ["qwen2-7b", "tiny-lm", "tiny-lm-fast",
-                            "tiny-test"]
+    assert list_archs() == ["mamba2-1.3b", "qwen2-7b", "recurrentgemma-9b",
+                            "tiny-lm", "tiny-lm-fast", "tiny-test"]
     for name in list_archs():
         for reduced in (False, True):
             got = dataclasses.asdict(get_config(name, reduced))
@@ -58,7 +83,9 @@ def test_registry_holds_the_ported_archs():
 
 
 @pytest.mark.parametrize("field,value", [("attn_impl", "cuda"),
-                                         ("mlp_impl", "xla_chunked")])
+                                         ("mlp_impl", "xla_chunked"),
+                                         ("ssm_impl", "triton"),
+                                         ("rglru_impl", "xla_chunked")])
 def test_plan_rejects_an_unknown_destination(field, value):
     plan = get_config("tiny-test").plan
     with pytest.raises(ValueError, match=field):
@@ -71,6 +98,28 @@ def test_full_qwen2_7b_sizes():
             cfg.d_head, cfg.d_ff, cfg.vocab_size) == \
         (28, 3584, 28, 4, 128, 18944, 152064)
     assert abs(cfg.param_count() / 1e9 - 7.62) < 0.01
+
+
+def test_full_mamba2_and_recurrentgemma_sizes():
+    m = get_config("mamba2-1.3b")
+    assert (m.n_layers, m.d_model, m.d_inner, m.ssm_nheads, m.ssm_headdim,
+            m.ssm_state, m.ssm_conv, m.ssm_chunk, m.vocab_size,
+            m.tie_embeddings) == (48, 2048, 4096, 64, 64, 128, 4, 256,
+                                  50280, True)
+    assert abs(m.param_count() / 1e9 - 1.34) < 0.01
+    r = get_config("recurrentgemma-9b")
+    assert (r.n_layers, r.d_model, r.n_heads, r.n_kv_heads, r.d_head,
+            r.d_ff, r.act, r.local_window, r.lru_width, r.vocab_size) == \
+        (38, 4096, 16, 1, 256, 12288, "gelu", 2048, 4096, 256000)
+    kinds = r.layer_kinds()
+    assert kinds == ["rec", "rec", "attn"] * 12 + ["rec", "rec"]
+    assert abs(r.param_count() / 1e9 - 8.53) < 0.01
+    for cfg in (m, r):      # the reference's pytree, leaf for leaf
+        shapes = jax.eval_shape(JModel(jget(cfg.name)).init,
+                                jax.random.PRNGKey(0))
+        weights = T.Transformer(cfg, torch.device("meta"))
+        assert sum(p.numel() for p in weights.parameters()) == \
+            sum(a.size for a in jax.tree.leaves(shapes))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -91,9 +140,8 @@ def test_forward_logits_match_jax(arch, f32):
                                  jcfg.plan)[0], np.float32)
     got = model.forward(params, {"tokens": torch.from_numpy(toks)})
     assert got.dtype == getattr(torch, cfg.plan.compute_dtype)
-    tol = dict(atol=1e-4, rtol=1e-4) if f32 else \
-        dict(atol=0.05 * np.abs(want).max(), rtol=0)
-    np.testing.assert_allclose(got.float().numpy(), want, **tol)
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               **_logit_tol(arch, f32, jcfg, jp, toks, want))
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -130,7 +178,7 @@ def test_pallas_plan_equals_xla_plan_on_cpu(arch):
     _, _, cfg, model, params = _pair(arch)
     toks = {"tokens": torch.from_numpy(_tokens(cfg, (2, 48)))}
     base = model.forward(params, toks)
-    for plan in (cfg.plan.replace(attn_impl="pallas", mlp_impl="pallas"),
+    for plan in (cfg.plan.replace(**OFFLOAD),
                  cfg.plan.replace(attn_impl="xla", mlp_impl="xla")):
         torch.testing.assert_close(model.with_plan(plan).forward(params, toks),
                                    base, atol=1e-5, rtol=1e-5)
@@ -173,12 +221,82 @@ def test_init_uses_the_reference_scales():
 
 def test_unported_families_raise():
     tiny = get_config("tiny-test")
-    for cfg in (dataclasses.replace(tiny, family="ssm"),
-                dataclasses.replace(tiny, family="hybrid",
-                                    layer_pattern=("rec", "rec", "attn")),
-                dataclasses.replace(tiny, family="moe",
+    hybrid = get_config("recurrentgemma-9b", reduced=True)
+    for cfg in (dataclasses.replace(tiny, family="moe",
                                     moe=MoEConfig(4, 2, 32)),
                 dataclasses.replace(tiny, norm="layernorm"),
-                dataclasses.replace(tiny, act="gelu")):
+                dataclasses.replace(hybrid, norm="layernorm"),
+                dataclasses.replace(get_config("mamba2-1.3b", reduced=True),
+                                    norm="layernorm"),
+                dataclasses.replace(hybrid, frontend="vision_patches")):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Model(cfg, device="cpu")
+    # the families of this slice run: ssm, hybrid and the GELU MLP
+    for cfg in (dataclasses.replace(tiny, family="ssm", ssm_state=8,
+                                    ssm_headdim=16),
+                dataclasses.replace(tiny, family="hybrid",
+                                    layer_pattern=("rec", "rec", "attn"),
+                                    lru_width=32, local_window=8),
+                dataclasses.replace(tiny, act="gelu")):
+        Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+@pytest.mark.parametrize("f32", [True, False], ids=["f32", "bf16"])
+def test_offload_plan_logits_match_jax(arch, f32):
+    """Both packages on the offload plan: the JAX kernels in interpret mode
+    (SSD at chunk _blk(40, 16) = 10; RG-LRU and flash attention over the
+    40 tokens), the port's plain versions."""
+    jcfg, jp, cfg, _, _ = _pair(arch, f32)
+    jcfg = dataclasses.replace(jcfg, plan=jcfg.plan.replace(**OFFLOAD))
+    cfg = dataclasses.replace(cfg, plan=cfg.plan.replace(**OFFLOAD))
+    model = Model(cfg, device="cpu")
+    params = model.load(params_from_jax(cfg, jp))
+    toks = _tokens(cfg, (2, 40))
+    want = np.asarray(JT.forward(jp, {"tokens": jnp.asarray(toks)}, jcfg,
+                                 jcfg.plan)[0], np.float32)
+    got = model.forward(params, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(got.float().numpy(), want,
+                               **_logit_tol(arch, f32, jcfg, jp, toks, want))
+
+
+def test_sliding_window_cache_rolls():
+    """Port twin of tests/test_decode_consistency.py: recurrentgemma decode
+    from an empty cache past a window of 8 (an 8-slot KV cache) matches the
+    full forward, and the JAX forward."""
+    jcfg, jp, cfg, _, _ = _pair("recurrentgemma-9b")
+    jcfg, cfg = (dataclasses.replace(c, local_window=8) for c in (jcfg, cfg))
+    model = Model(cfg, device="cpu")
+    params = model.load(params_from_jax(cfg, jp))
+    toks = _tokens(cfg, (1, 24), seed=3)
+    full = model.forward(params, {"tokens": torch.from_numpy(toks)})
+    cache = model.init_cache(1, 24)
+    assert all(c["k"].shape[1] == 8 for c in cache if "k" in c)
+    outs = []
+    for t in range(24):
+        lg, cache = model.decode_step(
+            params, {"tokens": torch.from_numpy(toks[:, t:t + 1]), "pos": t},
+            cache)
+        outs.append(lg)
+    dec = torch.stack(outs, dim=1)
+    assert float((dec[:, 1:] - full[:, 1:]).abs().max()) < 1e-3
+    want = np.asarray(JT.forward(jp, {"tokens": jnp.asarray(toks)}, jcfg,
+                                 jcfg.plan)[0])
+    np.testing.assert_allclose(dec.numpy(), want, atol=1e-4, rtol=1e-4)
+
+
+def test_layer_order_matches_the_reference_stack():
+    """Unit-major, then the tail: the port's layer i is the reference's
+    scan unit i // 3, layer i % 3, for the first 36 of 38 layers."""
+    jcfg, jp, cfg, _, params = _pair("recurrentgemma-9b")
+    unit, n_full, tail = JT.unit_structure(jcfg)
+    assert (unit, n_full, tail) == (("rec", "rec", "attn"), 1,
+                                    ("rec", "rec"))
+    assert [layer.kind for layer in params.layers] == \
+        list(unit) * n_full + list(tail)
+    np.testing.assert_array_equal(
+        params.layers[2].mixer["wq"].numpy(), jp["scan"]["l2"]["mixer"]
+        ["wq"][0])
+    np.testing.assert_array_equal(
+        params.layers[4].mixer["lam"].numpy(), jp["tail"]["t1"]["mixer"]
+        ["lam"])

@@ -1,6 +1,8 @@
 """The port's ``ServeLoop`` against the JAX ``ServeLoop`` on the same requests.
 
-Both loops serve f32 tiny-test with the same weights (carried by
+Both loops serve f32 tiny-test (and reduced mamba2-1.3b and
+recurrentgemma-9b, whose recurrent states the teacher-forced prompt steps
+advance in every slot) with the same weights (carried by
 ``params_from_jax``), each with its own copy of the same virtual tick clock
 and a ``DecodeEnergyMeter`` at the accelerated R740 node point.  They must
 emit identical tokens and bill identical Watt*seconds (1e-9): the meters'
@@ -38,14 +40,17 @@ def _f32(cfg):
         compute_dtype="float32", kv_cache_dtype="float32"))
 
 
-@pytest.fixture(scope="module")
-def pair():
-    jcfg, cfg = _f32(jget("tiny-test")), _f32(get_config("tiny-test"))
+def _pair(jcfg, cfg):
     jmodel = JModel(jcfg)
     jp = jmodel.init(jax.random.PRNGKey(0))
     model = Model(cfg, device="cpu")
     params = model.load(params_from_jax(cfg, jax.tree.map(np.asarray, jp)))
     return jmodel, jp, model, params
+
+
+@pytest.fixture(scope="module")
+def pair():
+    return _pair(_f32(jget("tiny-test")), _f32(get_config("tiny-test")))
 
 
 def _loops(pair, slots=2, max_seq=64):
@@ -121,6 +126,29 @@ def test_serve_twin_tokens_and_bills(pair):
     assert sum(r.energy_ws for r in done) + \
         loop.meter.ledger.rollup("tenant")["fleet"].ws == \
         pytest.approx(loop.meter.ledger.total_ws, **WS)
+
+
+@pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])
+def test_serve_twin_recurrent_archs(arch):
+    """The offload plan on both sides (the kernels' plain versions here,
+    the JAX kernels under jit in decode, which reaches none of them):
+    identical tokens and Watt*seconds, 4 slots for 6 requests so slots
+    refill while others hold state."""
+    plan = dict(attn_impl="pallas", mlp_impl="pallas", ssm_impl="pallas",
+                rglru_impl="pallas")
+    jcfg, cfg = (dataclasses.replace(c, plan=c.plan.replace(**plan))
+                 for c in (_f32(jget(arch, True)),
+                           _f32(get_config(arch, True))))
+    jloop, loop = _loops(_pair(jcfg, cfg), slots=4)
+    jreqs, reqs = _requests(cfg.vocab_size, 6, seed=3)
+    for jr, r in zip(jreqs, reqs):
+        jloop.submit(jr)
+        loop.submit(r)
+    jdone, done = jloop.run(), loop.run()
+    assert [r.rid for r in done] == [r.rid for r in jdone]
+    assert all(1 <= len(r.out) <= 6 for r in done)
+    _same_bills(jdone, done)
+    _same_ledgers(jloop, loop)
 
 
 def test_drained_requests_resume_on_another_loop(pair):
