@@ -10,13 +10,19 @@ a non-zero exit and no result line:
   2. build    nvcc builds the five kernels (mriq, flash_attention, swiglu,
               ssd, rglru) for sm_90a from the sources in the checkout, all
               at once, and prints each kernel's registers, shared memory
-              and spills;
+              and spills, and, from ``cuobjdump -sass``, the tensor-core
+              (HMMA/HGMMA) and atomic instructions of each function of the
+              two tensor-core kernels (flash_attention, swiglu);
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the shapes the main path gives it (flash_attention also at
               recurrentgemma-9b's D=256 with its 2048 window; ssd also
               against the token-by-token recurrence); kernel, plain and
-              library times from CUDA events, and the card's least time
-              (bound); plus reduced qwen2-7b, mamba2-1.3b and
+              library times from CUDA events, the card's least time
+              (bound) and the kernel's share of it; for the bf16
+              tensor-core kernels also the library call's error against
+              the same plain version (the kernel's may be at most twice
+              it), and both swiglu designs timed on either side of their
+              switch; plus reduced qwen2-7b, mamba2-1.3b and
               recurrentgemma-9b on the card (kernels, f32) against the
               plain path on the CPU;
   4. MRI-Q    the paper's Fig. 5 at its size (64^3 voxels, 3072 k-space
@@ -42,7 +48,7 @@ a non-zero exit and no result line:
               kernels by device time, the CUDA runtime calls by host time,
               and the device's busy share of that window.
 
-It takes about 4 minutes on the H100, the kernels' build included.  It
+It takes about 3 minutes on the H100, the kernels' build (~7 s) included.  It
 exits non-zero when no CUDA device is visible, and when the port's package
 is not beside it.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
@@ -51,6 +57,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -67,11 +74,27 @@ PEAK_BF16 = 989e12      # FLOP/s, tensor cores
 PEAK_F32 = 67e12        # FLOP/s, CUDA cores
 PEAK_BYTES = 3.35e12    # B/s, HBM3
 
-#: a bf16 kernel computes in f32 and rounds once, so it is held against the
-#: plain version run in f32 on the same bf16 inputs, to that rounding:
-#: rtol 2^-8 (bf16's 8-bit mantissa) + atol 1e-5 (f32 sums in another order)
+#: one bf16 rounding, f32 sums in another order: rtol 2^-8 (bf16's 8-bit
+#: mantissa) + atol 1e-5
 BF16_TOL = (1e-5, 2.0 ** -8)
-BF16_TOL_TEXT = "atol 1e-5 + rtol 2^-8, vs the plain version in f32"
+#: the bf16 flash and swiglu kernels run on the tensor cores and round one
+#: intermediate to bf16 before the second product, as the library calls
+#: do: P (each weight moves by at most 2^-9 of itself and the weights sum
+#: to 1, so o moves by at most 2^-9 max|v|) and a (y moves by at most
+#: 2^-9 (|a| @ |wo|)).  Held against the plain version in f32 on the same
+#: bf16 inputs at that bound + BF16_TOL, and at most 2x the library call's
+#: error against the same plain version.
+ROUND = 2.0 ** -9
+#: f32 sums of many products in another order on the tensor cores, as a
+#: share of the sum of |products| (readings sit near 2^-22)
+SUM_ORDER = 2.0 ** -20
+FLASH_TOL_TEXT = ("atol 2^-9 max|v| + 1e-5 + rtol 2^-8, vs the plain "
+                  "version in f32")
+SWIGLU_TOL_TEXT = ("atol 2^-9 (|a| @ |wo|) + 1e-5 + rtol 2^-8, vs the plain "
+                   "version in f32; a and y = a @ wo each at atol 2^-20 "
+                   "sum|products| + 1e-5 + rtol 2^-8")
+#: the bf16 kernels' error may be at most this multiple of the library's
+LIBRARY_ERR_FACTOR = 2.0
 
 #: prefill + decode against the full forward, as a share of max|logit|:
 #: about 3x the largest reading on H100 runs (PERF.md, section 6: 0.0159,
@@ -157,9 +180,19 @@ def check(name: str, got, want, atol: float, rtol: float) -> float:
     excess = float(((got.float() - want.float()).abs()
                     - (atol + rtol * want.float().abs())).max())
     if excess > 0:
-        raise RuntimeError(f"{name}: max_err {err:.3e} over atol {atol} + "
+        atol_s = f"{atol}" if isinstance(atol, float) else "(per element)"
+        raise RuntimeError(f"{name}: max_err {err:.3e} over atol {atol_s} + "
                            f"rtol {rtol}*|plain|")
     return err
+
+
+def check_library(name: str, err: float, lib_err: float) -> None:
+    """A bf16 tensor-core kernel's error against the plain f32 version may
+    be at most LIBRARY_ERR_FACTOR times the library call's."""
+    if err > LIBRARY_ERR_FACTOR * lib_err:
+        raise RuntimeError(f"{name}: max_err {err:.3e} over "
+                           f"{LIBRARY_ERR_FACTOR} x the library's "
+                           f"{lib_err:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -179,6 +212,43 @@ def phase_card() -> dict:
     return card
 
 
+#: the kernels whose bf16 instance runs on the tensor cores
+TENSOR_CORE = ("flash_attention", "swiglu")
+
+
+def sass_counts(lib: Path) -> dict | None:
+    """Tensor-core (HMMA/HGMMA) and atomic (RED/ATOM) instructions in each
+    function of a built library, from ``cuobjdump -sass``; None where the
+    toolkit has no cuobjdump."""
+    from repro_torch.kernels._build import nvcc
+    tool = Path(nvcc()).parent / "cuobjdump"
+    if not tool.is_file():
+        return None
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                          text=True, check=True, timeout=120).stdout
+    filt = Path(nvcc()).parent / "cu++filt"
+    counts: dict = {}
+    fn = None
+    for line in sass.splitlines():
+        if "Function : " in line:
+            fn = line.split("Function : ")[1].strip()
+            counts[fn] = {"tensor_core": 0, "atomic": 0}
+        elif fn is not None:
+            # "/*0120*/  @P0 HMMA.16816.F32.BF16 R4, ... ;  /* 0x... */"
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
+                          line)
+            op = m.group(1) if m else ""
+            counts[fn]["tensor_core"] += op in ("HMMA", "HGMMA")
+            counts[fn]["atomic"] += op.startswith(("RED", "ATOM"))
+    if filt.is_file():
+        names = subprocess.run([str(filt)], input="\n".join(counts),
+                               capture_output=True, text=True,
+                               timeout=60).stdout.splitlines()
+        if len(names) == len(counts):
+            counts = dict(zip(names, counts.values()))
+    return counts
+
+
 def phase_build() -> None:
     from repro_torch.kernels import _build
     t0 = time.perf_counter()
@@ -189,6 +259,20 @@ def phase_build() -> None:
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
                 log(f"[build] {name}: {line.strip()}")
+    for name in TENSOR_CORE:
+        counts = sass_counts(_build.library_path(name))
+        if counts is None:
+            log(f"[build] {name}: no cuobjdump, SASS not read")
+            continue
+        for fn, c in counts.items():
+            log(f"[build] {name} SASS: {c['tensor_core']} HMMA/HGMMA, "
+                f"{c['atomic']} RED/ATOM in {fn[:110]}")
+        if not sum(c["tensor_core"] for c in counts.values()):
+            raise RuntimeError(f"{name}: no tensor-core instruction in SASS")
+        if name == "swiglu" and any(
+                c["atomic"] for fn, c in counts.items() if "gemm" in fn
+                or "combine" in fn):
+            raise RuntimeError("swiglu: atomics in a bf16 function")
 
 
 # ---------------------------------------------------------------------------
@@ -233,8 +317,9 @@ def flash_case(s: int, hq: int, hkv: int, d: int, window: int, seed: int,
     got = K.flash_attention_cuda(q, k, v, True, window)
     want = ref.flash_attention_ref(q.float(), k.float(), v.float(), True,
                                    window)
-    err = check(f"flash_attention D={d}", got, want, *BF16_TOL)
-    del want
+    err = check(f"flash_attention D={d}", got, want,
+                ROUND * float(v.float().abs().max()) + BF16_TOL[0],
+                BF16_TOL[1])
     # library yardstick: SDPA on (B,H,S,D) with the KV heads repeated (and
     # the window as a boolean mask)
     qt = q.transpose(1, 2).contiguous()
@@ -249,12 +334,17 @@ def flash_case(s: int, hq: int, hkv: int, d: int, window: int, seed: int,
         if window:
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
         return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    sdpa_err = max_err(sdpa().transpose(1, 2), got)
+    sdpa_err = max_err(sdpa().transpose(1, 2), want)
+    del want
+    check_library(f"flash_attention D={d}", err, sdpa_err)
     pairs = int(keep.sum())     # (q, k) pairs the mask keeps
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
     bnd = bound(4.0 * b * hq * d * pairs, PEAK_BF16, nbytes)
     mask = "causal" + (f" window {window}" if window else "")
-    return {"max_abs_err": err, "tol": BF16_TOL_TEXT,
+    return {"max_abs_err": err, "tol": FLASH_TOL_TEXT,
+            "design": "mma.sync m16n8k16 bf16, cp.async 2-stage K/V ring, "
+                      + ("64 queries x 4 warps" if d <= 128
+                         else "128 queries x 8 warps") + ", 64-key tiles",
             "ms": cuda_ms(lambda: K.flash_attention_cuda(q, k, v, True,
                                                          window), reps),
             "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(
@@ -266,24 +356,59 @@ def flash_case(s: int, hq: int, hkv: int, d: int, window: int, seed: int,
             "shape": f"B={b} S=T={s} Hq={hq} Hkv={hkv} D={d} bf16 {mask}"}
 
 
-def swiglu_case(t: int, seed: int) -> dict:
-    from repro_torch.kernels import swiglu as K, ref
+SWIGLU_DESIGNS = {
+    "decode": "mma.sync m16n8k16 bf16, 32-row x tiles, 64x64 weight tiles, "
+              "cp.async 4 stages, K split over ~8 waves + fixed-order sums",
+    "prefill": "wgmma m64n128k16 bf16, both operands by 128B-swizzled "
+               "descriptor (weights M-major), dual GEMM 128x128x64 + GEMM "
+               "128x128x64, cp.async 4 stages, a in bf16 scratch"}
+
+
+def qwen_mlp(seed: int):
+    """qwen2-7b's MLP weights (d 3584, f 18944) in bf16 on the card."""
     d, f = 3584, 18944
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(shape, scale):
         return (torch.randn(shape, generator=g, device="cuda") * scale
                 ).to(torch.bfloat16)
-    x = randn((t, d), 1.0)
-    wi, wg = randn((d, f), d ** -0.5), randn((d, f), d ** -0.5)
-    wo = randn((f, d), f ** -0.5)
-    got = K.swiglu_cuda(x, wi, wg, wo)
-    want = ref.swiglu_ref(x.float(), wi.float(), wg.float(), wo.float())
-    err = check(f"swiglu T={t}", got, want, *BF16_TOL)
+    return (randn((d, f), d ** -0.5), randn((d, f), d ** -0.5),
+            randn((f, d), f ** -0.5), g)
+
+
+def swiglu_case(t: int, seed: int) -> dict:
+    from repro_torch.kernels import swiglu as K, ref
+    wi, wg, wo, g = qwen_mlp(seed)
+    d, f = wi.shape
+    x = torch.randn((t, d), generator=g, device="cuda").to(torch.bfloat16)
+    a_k = torch.empty((t, f), dtype=torch.bfloat16, device="cuda")
+    got = K.swiglu_cuda(x, wi, wg, wo, out_a=a_k)
+    x32, wi32, wg32, wo32 = (w.float() for w in (x, wi, wg, wo))
+    h, gt = x32 @ wi32, x32 @ wg32
+    a = F.silu(gt) * h
+    # a moves by |silu(g)| dh + |h| |silu'(g)| dg, |silu'| < 1.1
+    sums = (F.silu(gt).abs() * (x32.abs() @ wi32.abs())
+            + 1.1 * h.abs() * (x32.abs() @ wg32.abs()))
+    del wi32, wg32, h, gt
+    want = a @ wo32
+    err = check(f"swiglu T={t}", got, want,
+                ROUND * (a.abs() @ wo32.abs()) + BF16_TOL[0], BF16_TOL[1])
+    err_a = check(f"swiglu T={t} a", a_k, a, SUM_ORDER * sums + BF16_TOL[0],
+                  BF16_TOL[1])
+    err_y = check(f"swiglu T={t} y vs a @ wo", got, a_k.float() @ wo32,
+                  SUM_ORDER * (a_k.float().abs() @ wo32.abs())
+                  + BF16_TOL[0], BF16_TOL[1])
+    del sums
+    del a, wo32, x32
+    lib_err = max_err((F.silu(x @ wg) * (x @ wi)) @ wo, want)
+    del want
+    check_library(f"swiglu T={t}", err, lib_err)
     nbytes = (3 * d * f + 2 * t * d) * 2
     bnd = bound(6.0 * t * d * f, PEAK_BF16, nbytes)
-    reps = 20 if t <= 32 else 5
-    return {"max_abs_err": err, "tol": BF16_TOL_TEXT,
+    reps = 20 if t <= K.DECODE_MAX_T else 5
+    return {"max_abs_err": err, "tol": SWIGLU_TOL_TEXT,
+            "a_max_abs_err": err_a, "y_vs_a_wo_max_abs_err": err_y,
+            "design": SWIGLU_DESIGNS[K.plan(t, d, f, x.dtype)["design"]],
             "ms": cuda_ms(lambda: K.swiglu_cuda(x, wi, wg, wo), reps),
             "plain_ms": cuda_ms(lambda: ref.swiglu_ref(x, wi, wg, wo), reps),
             **bnd,
@@ -291,7 +416,32 @@ def swiglu_case(t: int, seed: int) -> dict:
             "library_ms": cuda_ms(
                 lambda: (F.silu(x @ wg) * (x @ wi)) @ wo, reps),
             "library": "cuBLAS chain (silu(x@wg)*(x@wi))@wo",
+            "library_max_abs_err": lib_err,
             "shape": f"T={t} d={d} f={f} bf16"}
+
+
+#: token counts at which both bf16 swiglu designs are timed: decode,
+#: prefill, and around the switch (swiglu.DECODE_MAX_T)
+SWITCH_T = (8, 32, 33, 64, 65, 128, 256, 1024)
+
+
+def swiglu_designs() -> dict:
+    """Both bf16 swiglu designs timed at each of SWITCH_T, at qwen2-7b's
+    widths (the wrapper takes decode up to swiglu.DECODE_MAX_T)."""
+    from repro_torch.kernels import swiglu as K
+    wi, wg, wo, g = qwen_mlp(8)
+    out = {}
+    for t in SWITCH_T:
+        x = torch.randn((t, wi.shape[0]), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        reps = 20 if t <= 256 else 5
+        out[t] = {dz: cuda_ms(lambda: K.swiglu_cuda(x, wi, wg, wo, dz), reps)
+                  for dz in ("decode", "prefill")}
+        log(f"[kernels] swiglu T={t} d=3584 f=18944 bf16: decode design "
+            f"{out[t]['decode']:.4f} ms, prefill design "
+            f"{out[t]['prefill']:.4f} ms (wrapper takes "
+            f"{K.plan(t, 3584, 18944, x.dtype)['design']})")
+    return out
 
 
 #: the SSD check's shape: mamba2-1.3b's prefill of 2 x 512 tokens
@@ -417,6 +567,7 @@ def phase_kernels() -> dict:
                                                   seed=7, reps=5)
     rows["swiglu"] = swiglu_case(8, seed=2)
     rows["swiglu"]["prefill"] = swiglu_case(1024, seed=3)
+    rows["swiglu"]["designs_ms"] = swiglu_designs()
     kernel_ssd(rows)
     kernel_rglru(rows)
     for name, r in rows.items():
@@ -430,7 +581,12 @@ def phase_kernels() -> dict:
                 f"{rr['max_abs_err']:.3e} tol {rr['tol']} kernel_ms "
                 f"{rr['ms']:.4f} plain_ms {rr['plain_ms']:.4f} library_ms "
                 f"{lib} bound_ms {rr['bound_ms']:.4f} ({rr['bound_by']}; "
-                f"operations at {rr['bound_peak']})")
+                f"operations at {rr['bound_peak']}); share of bound "
+                f"{rr['bound_ms'] / rr['ms']:.4f}")
+            if "library_max_abs_err" in rr:
+                log(f"[kernels] {name} {label}: library max_err vs the plain "
+                    f"version {rr['library_max_abs_err']:.3e}; design "
+                    f"{rr.get('design', '')}")
     log(f"[kernels] ssd vs the token-by-token recurrence: max_err "
         f"{rows['ssd']['recurrence_max_abs_err']:.3e}; f32 with slow decay "
         f"{rows['ssd']['slow_decay_f32_max_abs_err']:.3e} (tol "
@@ -517,8 +673,9 @@ def phase_prefill(model, params, held: bool = True) -> dict:
             raise RuntimeError(f"{cfg.name}: non-finite {name} logits")
     scale = float(full.abs().max())
     if held:
-        # roundings taken in another order along the residual layers (the
-        # kernels compute in f32 at prefill; decode runs the stock ops)
+        # roundings taken in another order along the residual layers (at
+        # prefill the kernels round P and a to bf16; decode attention runs
+        # the stock ops)
         tol = PREFILL_TOL[cfg.name] * scale
         e_pre = check("prefill last logits vs forward", last,
                       full[:, s - 1], tol, 0.0)

@@ -4,7 +4,7 @@ Each kernel is one ``csrc/<name>.cu`` with a plain ``extern "C"`` launcher
 that returns ``cudaGetLastError()``.  ``build`` compiles every requested
 source that has no library yet, one ``nvcc`` process per source, all started
 together, into ``kernels/build/lib<name>-<hash>.so`` (the hash covers the
-source, the shared header and the flags, so an edit rebuilds).  A library
+source, the shared headers and the flags, so an edit rebuilds).  A library
 is written under a temporary name and renamed into place, so processes that
 build at once never load a half-written file.
 
@@ -26,7 +26,7 @@ import torch
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "build"
-HEADERS = ("common.cuh",)
+HEADERS = ("common.cuh", "mma.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -2,7 +2,8 @@
 
 Counterpart of ``repro.kernels.flash_attention`` (the Pallas TPU kernel).
 Blocked online-softmax attention with GQA, causal and sliding-window masks
-and scale 1/sqrt(D), computed in f32 and returned in q's dtype; see the
+and scale 1/sqrt(D), returned in q's dtype: bf16 on the tensor cores (f32
+accumulators, P rounded to bf16 before PV), f32 on the CUDA cores.  See the
 source for its bound and design.
 """
 from __future__ import annotations

@@ -46,11 +46,17 @@ def flash_attention_ref(q, k, v, causal=True, window=0):
     return attention_naive(q, k, v, qpos, kpos, causal, window)
 
 
-def swiglu_ref(x, wi, wg, wo):
-    """(T,d) x -> ((silu(x wg) * (x wi)) wo)."""
+def swiglu_ref(x, wi, wg, wo, round_a=False):
+    """(T,d) x -> ((silu(x wg) * (x wi)) wo).  ``round_a`` rounds the
+    intermediate a = silu(x wg) * (x wi) to bf16 before the second product,
+    as the bf16 kernel stores it (the tests hold that kernel to this mirror
+    at the tight tolerance)."""
     h = x @ wi
     g = x @ wg
-    return (F.silu(g) * h) @ wo
+    a = F.silu(g) * h
+    if round_a:
+        a = a.to(torch.bfloat16).to(a.dtype)
+    return a @ wo
 
 
 def rglru_ref(log_a, b):

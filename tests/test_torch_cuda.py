@@ -1,10 +1,29 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
-The kernels compute in f32 and round once to the output dtype, so a bf16
-result is held against the plain version run in f32 on the same bf16
-inputs, to the final rounding: rtol 2^-8 (bf16's 8-bit mantissa) plus atol
-1e-5 for the f32 sums taken in another order.  f32 results keep the
-tolerances of tests/test_kernels.py.
+f32 results keep the tolerances of tests/test_kernels.py (the f32 kernels
+compute on the CUDA cores and round nowhere).  bf16 results are held
+against the plain version run in f32 on the same bf16 inputs:
+
+* ssd rounds once, to y: rtol 2^-8 (bf16's 8-bit mantissa).
+* flash_attention runs on the tensor cores and rounds P to bf16 before PV,
+  as the library's kernels do: each weight of a row moves by at most 2^-9
+  of itself and the weights sum to 1, so the output moves by at most
+  2^-9 max|v|; held at atol 2^-9 max|v| + 1e-5, rtol 2^-8 (the output's own
+  rounding).  That is tighter than tests/test_kernels.py's 2e-2 for the
+  bf16 Pallas kernel at these inputs.
+* swiglu runs on the tensor cores and stores a = silu(x wg) * (x wi) in
+  bf16 between its two products.  Against the f32 plain version: atol
+  2^-9 (|a| @ |wo|) + 1e-5 (a's rounding, summed through wo), rtol 2^-8
+  (y's rounding).  Each product is also held on its own to one rounding
+  (rtol 2^-8, atol 1e-5) plus its f32 sums taken in another order on the
+  tensor cores, 2^-20 of the sum of |products| (the card's readings sit
+  near 2^-22): the kernel's a (``out_a``) against the f32 a, and y
+  against that a @ wo in f32.  (The plain version that rounds its own a,
+  ``swiglu_ref(round_a=True)``, is no tight mirror at full width: the two
+  f32 computations of a round to neighbouring bf16 values here and
+  there, and at T=1024, f=18944 those steps add up past 1e-5.)
+* The bf16 swiglu adds its split sums in a fixed order: two launches agree
+  bit for bit.
 
 jax-free.  Every test takes the ``cuda`` fixture, which skips (with the
 reason) when no CUDA device is visible; on the H100 run them with
@@ -28,8 +47,61 @@ from repro_torch.models.model import Model
 
 pytestmark = pytest.mark.cuda
 
-TOL = {torch.float32: {"atol": 2e-5, "rtol": 2e-5},
-       torch.bfloat16: {"atol": 1e-5, "rtol": 2.0 ** -8}}
+#: f32 kernels: tests/test_kernels.py's tolerance
+TOL = {"atol": 2e-5, "rtol": 2e-5}
+#: bf16 flash and swiglu round one intermediate (P, a) to bf16; see above
+ROUND = 2.0 ** -9
+#: f32 sums of many products in another order on the tensor cores, as a
+#: share of the sum of |products|
+SUM_ORDER = 2.0 ** -20
+
+
+def _flash_close(o, o0, v):
+    """o against the f32 plain version o0 (see the module docstring)."""
+    if o.dtype == torch.float32:
+        torch.testing.assert_close(o, o0, **TOL)
+        return
+    atol = ROUND * float(v.float().abs().max()) + 1e-5
+    torch.testing.assert_close(o.float(), o0, atol=atol, rtol=2.0 ** -8)
+
+
+def _swiglu_close(x, wi, wg, wo):
+    """Runs the kernel and holds y against the f32 plain version; for bf16
+    also the kernel's a against the f32 a, and y against a @ wo in f32
+    (see the module docstring).  Returns y."""
+    a_k = None
+    if x.dtype == torch.bfloat16:
+        a_k = torch.empty((x.shape[0], wi.shape[1]), dtype=torch.bfloat16,
+                          device=x.device)
+    y = SG.swiglu_cuda(x, wi, wg, wo, out_a=a_k)
+    assert y.dtype == x.dtype
+    f32 = [t.float() for t in (x, wi, wg, wo)]
+    want = ref.swiglu_ref(*f32)
+    if a_k is None:
+        torch.testing.assert_close(y, want, **TOL)
+        return y
+    x32, wi32, wg32, wo32 = f32
+    h, g = x32 @ wi32, x32 @ wg32
+    a = torch.nn.functional.silu(g) * h
+    _assert_within(y, want, ROUND * (a.abs() @ wo32.abs()) + 1e-5, 2.0 ** -8)
+    # a moves by |silu(g)| dh + |h| |silu'(g)| dg, |silu'| < 1.1
+    xa = x32.abs()
+    sums = (torch.nn.functional.silu(g).abs() * (xa @ wi32.abs())
+            + 1.1 * h.abs() * (xa @ wg32.abs()))
+    _assert_within(a_k, a, SUM_ORDER * sums + 1e-5, 2.0 ** -8)
+    _assert_within(y, a_k.float() @ wo32,
+                   SUM_ORDER * (a_k.float().abs() @ wo32.abs()) + 1e-5,
+                   2.0 ** -8)
+    return y
+
+
+def _assert_within(got, want, atol, rtol):
+    """|got - want| <= atol + rtol |want| elementwise (atol a tensor)."""
+    over = (got.float() - want).abs() - (atol + rtol * want.abs())
+    assert bool(torch.isfinite(got.float()).all())
+    assert float(over.max()) <= 0, (
+        f"max excess {float(over.max()):.3e}, max err "
+        f"{float((got.float() - want).abs().max()):.3e}")
 
 
 @pytest.fixture
@@ -73,7 +145,7 @@ def test_flash_kernel(cuda, dtype, hq, hkv, causal, window, s, d):
     o0 = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal,
                                  window)
     assert o.dtype == dtype
-    torch.testing.assert_close(o.float(), o0, **TOL[dtype])
+    _flash_close(o, o0, v)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -91,7 +163,21 @@ def test_flash_kernel_wide_heads(cuda, dtype, hq, hkv, causal, window, s, d):
     o = FA.flash_attention_cuda(q, k, v, causal, window)
     o0 = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal,
                                  window)
-    torch.testing.assert_close(o.float(), o0, **TOL[dtype])
+    _flash_close(o, o0, v)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_window_skips_many_tiles(cuda, dtype):
+    """D=256, window 128 over 1000 positions: the last q tiles skip a dozen
+    leading key tiles, and their first kept tile is masked for most of
+    its rows."""
+    rng = np.random.default_rng(256)
+    q = _randn(rng, (1, 1000, 4, 256), dtype)
+    k = _randn(rng, (1, 1000, 1, 256), dtype)
+    v = _randn(rng, (1, 1000, 1, 256), dtype)
+    o = FA.flash_attention_cuda(q, k, v, True, 128)
+    _flash_close(o, ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                            True, 128), v)
 
 
 def _ssd_inputs(rng, b, s, h, p, n, dtype, dt_shift=0.0):
@@ -156,10 +242,43 @@ def test_swiglu_kernel(cuda, dtype, t, d, f):
     wi = _randn(rng, (d, f), dtype, 0.2)
     wg = _randn(rng, (d, f), dtype, 0.2)
     wo = _randn(rng, (f, d), dtype, 0.2)
-    y = SG.swiglu_cuda(x, wi, wg, wo)
-    y0 = ref.swiglu_ref(x.float(), wi.float(), wg.float(), wo.float())
-    assert y.dtype == dtype
-    torch.testing.assert_close(y.float(), y0, **TOL[dtype])
+    _swiglu_close(x, wi, wg, wo)
+
+
+@pytest.mark.parametrize("t", [SG.DECODE_MAX_T, SG.DECODE_MAX_T + 1])
+def test_swiglu_kernel_both_sides_of_the_switch(cuda, t):
+    """The last T of the decode design and the first of the prefill one."""
+    rng = np.random.default_rng(t)
+    x = _randn(rng, (t, 200), torch.bfloat16)
+    wi, wg = (_randn(rng, (200, 328), torch.bfloat16, 0.1) for _ in "ig")
+    wo = _randn(rng, (328, 200), torch.bfloat16, 0.1)
+    assert SG.plan(t, 200, 328, torch.bfloat16)["design"] == (
+        "decode" if t <= SG.DECODE_MAX_T else "prefill")
+    _swiglu_close(x, wi, wg, wo)
+
+
+@pytest.mark.parametrize("t", [8, 1024])
+def test_swiglu_kernel_at_qwen2_widths(cuda, t):
+    """qwen2-7b's MLP (d 3584, f 18944) at decode and prefill T."""
+    d, f = 3584, 18944
+    rng = np.random.default_rng(t)
+    x = _randn(rng, (t, d), torch.bfloat16)
+    wi, wg = (_randn(rng, (d, f), torch.bfloat16, d ** -0.5) for _ in "ig")
+    wo = _randn(rng, (f, d), torch.bfloat16, f ** -0.5)
+    _swiglu_close(x, wi, wg, wo)
+
+
+@pytest.mark.parametrize("t", [8, 300])
+def test_swiglu_bf16_repeats_bit_for_bit(cuda, t):
+    """No atomics: the split sums add in a fixed order (decode), and every
+    output element has one writer (prefill)."""
+    rng = np.random.default_rng(5)
+    x = _randn(rng, (t, 512), torch.bfloat16)
+    wi, wg = (_randn(rng, (512, 1024), torch.bfloat16, 0.05) for _ in "ig")
+    wo = _randn(rng, (1024, 512), torch.bfloat16, 0.05)
+    y1 = SG.swiglu_cuda(x, wi, wg, wo)
+    y2 = SG.swiglu_cuda(x, wi, wg, wo)
+    assert torch.equal(y1, y2)
 
 
 def test_ops_launch_the_kernels_and_count(cuda):

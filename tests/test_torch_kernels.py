@@ -7,6 +7,7 @@ tests/test_kernels.py's: mriq atol 5e-4 rtol 1e-4; flash 2e-5 (f32) and
 sizes.  On CPU tensors the public wrappers run the plain versions and
 never launch (or build) a kernel.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -116,6 +117,64 @@ def test_swiglu_plain_matches_pallas_and_oracle(t, d, f, bt, bf):
     for want in (swiglu_pallas(*jargs, block_t=bt, block_f=bf),
                  jref.swiglu_ref(*jargs)):
         _close(y, want, (2e-5, 2e-5))
+
+
+@pytest.mark.parametrize("t,d,f", [(8, 16, 32), (32, 32, 64),
+                                   (64, 24, 48)])
+def test_swiglu_round_a_mirror_matches_pallas_on_rounded_a(t, d, f):
+    """``swiglu_ref(round_a=True)`` is the JAX oracle with a rounded to
+    bf16 before the second product, and stays within that one rounding
+    (2^-9 (|a| @ |wo|)) of the Pallas kernel, which keeps a in f32."""
+    rng = np.random.default_rng(t + d)
+    x = _np(rng, (t, d))
+    wi, wg, wo = _np(rng, (d, f), 0.2), _np(rng, (d, f), 0.2), \
+        _np(rng, (f, d), 0.2)
+    y = ref.swiglu_ref(*map(_t, (x, wi, wg, wo)), round_a=True)
+    jx, jwi, jwg, jwo = (jnp.asarray(a) for a in (x, wi, wg, wo))
+    a = jax.nn.silu(jx @ jwg) * (jx @ jwi)
+    a_bf16 = a.astype(jnp.bfloat16).astype(jnp.float32)
+    _close(y, a_bf16 @ jwo, (2e-5, 2e-5))
+    bound = 2.0 ** -9 * (np.abs(np.asarray(a)) @ np.abs(wo)) + 2e-5
+    got = y.numpy() - np.asarray(swiglu_pallas(jx, jwi, jwg, jwo,
+                                               block_t=8, block_f=16))
+    assert bool((np.abs(got) <= bound).all())
+    assert not np.allclose(y.numpy(), ref.swiglu_ref(
+        *map(_t, (x, wi, wg, wo))).numpy(), atol=1e-7, rtol=0)
+
+
+@pytest.mark.parametrize("t,design", [(1, "decode"), (8, "decode"),
+                                      (SG.DECODE_MAX_T, "decode"),
+                                      (SG.DECODE_MAX_T + 1, "prefill"),
+                                      (1024, "prefill")])
+def test_swiglu_plan_picks_the_design_by_t(t, design):
+    p = SG.plan(t, 3584, 18944, torch.bfloat16)
+    assert p["design"] == design and p["a"] == t * 18944
+    assert SG.plan(t, 3584, 18944, torch.float32) == {
+        "design": "f32", "ws": t * 3584, "a": 0, "kc1": 0, "kc2": 0}
+    other = "prefill" if design == "decode" else "decode"
+    assert SG.plan(t, 3584, 18944, torch.bfloat16, other)["design"] == other
+    with pytest.raises(ValueError):
+        SG.plan(t, 3584, 18944, torch.float32, "decode")
+
+
+def test_swiglu_decode_scratch_at_qwen2_widths():
+    """T=8: d split in 4 (1184 gate blocks), f in 19 (1064 down blocks);
+    the partials are 7.1 MB beside 407 MB of weights."""
+    p = SG.plan(8, 3584, 18944, torch.bfloat16)
+    assert (p["kc1"], p["kc2"]) == (896, 1024)
+    assert p["ws"] == 4 * 2 * 8 * 18944 + 19 * 8 * 3584
+    assert SG.plan(SG.DECODE_MAX_T + 1, 3584, 18944,
+                   torch.bfloat16)["ws"] == 0
+
+
+@pytest.mark.parametrize("k,n", [(16, 32), (3584, 18944), (18944, 3584),
+                                 (72, 200), (200, 8), (64 * 1000 + 8, 64)])
+def test_swiglu_k_split_covers_k_in_whole_tiles(k, n):
+    z, kc = SG.k_split(k, n)
+    assert kc % SG.DECODE_TILE == 0 and (z - 1) * kc < k <= z * kc
+    blocks = z * -(-n // SG.DECODE_TILE)
+    assert blocks >= min(SG.DECODE_BLOCKS, -(-n // SG.DECODE_TILE)
+                         * -(-k // SG.DECODE_TILE)) // 2
 
 
 def test_fused_swiglu_flattens_leading_dims():
