@@ -12,13 +12,20 @@ a non-zero exit and no result line:
               at once, and prints each kernel's registers, shared memory
               and spills, and, from ``cuobjdump -sass``, the tensor-core
               (HMMA/HGMMA) and atomic instructions of each function of the
-              two tensor-core kernels (flash_attention, swiglu);
+              three tensor-core kernels (flash_attention, swiglu, ssd:
+              each of ssd's bf16 functions must hold HMMA/HGMMA) and of
+              rglru (no RED/ATOM in any function of ssd or rglru);
   3. kernels  each kernel against its plain PyTorch version on the card, at
               the shapes the main path gives it (flash_attention also at
-              recurrentgemma-9b's D=256 with its 2048 window; ssd also
-              against the token-by-token recurrence); kernel, plain and
-              library times from CUDA events, the card's least time
-              (bound) and the kernel's share of it; for the bf16
+              recurrentgemma-9b's D=256 with its 2048 window; ssd in bf16
+              and f32 at mamba2-1.3b's prefill (S 512, chunk 256) and
+              forward (S 520, chunk 130), also against the token-by-token
+              recurrence; rglru at recurrentgemma-9b's prefill and forward
+              S; ssd and rglru launched twice and held bit for bit); plain
+              and library times from CUDA events, the kernel's from a CUDA
+              graph of its launches replayed (the host's launch cost does
+              not bound a short kernel; ssd's also eager), the card's least
+              time (bound) and the kernel's share of it; for the bf16
               tensor-core kernels also the library call's error against
               the same plain version (the kernel's may be at most twice
               it), and both swiglu designs timed on either side of their
@@ -44,9 +51,10 @@ a non-zero exit and no result line:
               counts   the kernels' launch counts over that model's path
                        (MRI-Q belongs to qwen2-7b's), each kernel of the
                        path > 0;
-  6. profile  qwen2-7b's 8 requests served again under torch.profiler:
-              kernels by device time, the CUDA runtime calls by host time,
-              and the device's busy share of that window.
+  6. profile  qwen2-7b's 8 requests served again, and one bf16 prefill of
+              mamba2-1.3b, under torch.profiler: kernels by device time,
+              the CUDA runtime calls by host time, and the device's busy
+              share of each window.
 
 It takes about 3 minutes on the H100, the kernels' build (~7 s) included.  It
 exits non-zero when no CUDA device is visible, and when the port's package
@@ -158,6 +166,33 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Mean milliseconds of ``fn`` over ``reps`` calls captured in one CUDA
+    graph and replayed, CUDA events: the card's time for the launches,
+    without the host's time to make them (a wrapper's Python and launch
+    cost would otherwise bound a kernel shorter than it)."""
+    fn()
+    torch.cuda.synchronize()
+    side = torch.cuda.Stream()          # warm-up off the capture, as
+    side.wait_stream(torch.cuda.current_stream())   # torch.cuda.graphs asks
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(flops: float, peak: float, nbytes: float) -> dict:
     """The card's least time in ms for the work (the larger of its
     operations at ``peak`` and its bytes at the HBM rate), what bounds it,
@@ -213,7 +248,13 @@ def phase_card() -> dict:
 
 
 #: the kernels whose bf16 instance runs on the tensor cores
-TENSOR_CORE = ("flash_attention", "swiglu")
+TENSOR_CORE = ("flash_attention", "swiglu", "ssd")
+#: functions (by a part of their name) that must each hold a tensor-core
+#: instruction: ssd's bf16 functions
+TC_FUNCTIONS = {"ssd": "_tc"}
+#: functions (by parts of their name; "" for all) whose sums must hold no
+#: atomic instruction
+NO_ATOMICS = {"swiglu": ("gemm", "combine"), "ssd": ("",), "rglru": ("",)}
 
 
 def sass_counts(lib: Path) -> dict | None:
@@ -259,7 +300,7 @@ def phase_build() -> None:
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
                 log(f"[build] {name}: {line.strip()}")
-    for name in TENSOR_CORE:
+    for name in dict.fromkeys(TENSOR_CORE + tuple(NO_ATOMICS)):
         counts = sass_counts(_build.library_path(name))
         if counts is None:
             log(f"[build] {name}: no cuobjdump, SASS not read")
@@ -267,12 +308,18 @@ def phase_build() -> None:
         for fn, c in counts.items():
             log(f"[build] {name} SASS: {c['tensor_core']} HMMA/HGMMA, "
                 f"{c['atomic']} RED/ATOM in {fn[:110]}")
-        if not sum(c["tensor_core"] for c in counts.values()):
+        if name in TENSOR_CORE and not sum(
+                c["tensor_core"] for c in counts.values()):
             raise RuntimeError(f"{name}: no tensor-core instruction in SASS")
-        if name == "swiglu" and any(
-                c["atomic"] for fn, c in counts.items() if "gemm" in fn
-                or "combine" in fn):
-            raise RuntimeError("swiglu: atomics in a bf16 function")
+        part = TC_FUNCTIONS.get(name)
+        bare = [fn for fn, c in counts.items()
+                if part and part in fn and not c["tensor_core"]]
+        if bare:
+            raise RuntimeError(f"{name}: no tensor-core instruction in {bare}")
+        held = [fn for fn, c in counts.items() if c["atomic"] and any(
+            w in fn for w in NO_ATOMICS.get(name, ()))]
+        if held:
+            raise RuntimeError(f"{name}: atomics in {held}")
 
 
 # ---------------------------------------------------------------------------
@@ -300,7 +347,7 @@ def kernel_mriq(rows: dict) -> None:
     bnd = bound(16.0 * n * m, PEAK_F32, (3 * n + 4 * m + 2 * n) * 4)
     rows["mriq"] = {
         "max_abs_err": err, "tol": f"atol {atol} + rtol {rtol}",
-        "ms": cuda_ms(lambda: K.mriq_cuda(*args), reps=10),
+        "ms": graph_ms(lambda: K.mriq_cuda(*args), reps=10),
         "plain_ms": cuda_ms(lambda: ref.mriq_ref(*args), reps=3),
         **bnd, "library_ms": None, "library": NO_LIBRARY,
         "shape": f"N={n} M={m} f32"}
@@ -345,8 +392,8 @@ def flash_case(s: int, hq: int, hkv: int, d: int, window: int, seed: int,
             "design": "mma.sync m16n8k16 bf16, cp.async 2-stage K/V ring, "
                       + ("64 queries x 4 warps" if d <= 128
                          else "128 queries x 8 warps") + ", 64-key tiles",
-            "ms": cuda_ms(lambda: K.flash_attention_cuda(q, k, v, True,
-                                                         window), reps),
+            "ms": graph_ms(lambda: K.flash_attention_cuda(q, k, v, True,
+                                                          window), reps),
             "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(
                 q, k, v, True, window), reps),
             **bnd,
@@ -409,7 +456,7 @@ def swiglu_case(t: int, seed: int) -> dict:
     return {"max_abs_err": err, "tol": SWIGLU_TOL_TEXT,
             "a_max_abs_err": err_a, "y_vs_a_wo_max_abs_err": err_y,
             "design": SWIGLU_DESIGNS[K.plan(t, d, f, x.dtype)["design"]],
-            "ms": cuda_ms(lambda: K.swiglu_cuda(x, wi, wg, wo), reps),
+            "ms": graph_ms(lambda: K.swiglu_cuda(x, wi, wg, wo), reps),
             "plain_ms": cuda_ms(lambda: ref.swiglu_ref(x, wi, wg, wo), reps),
             **bnd,
             # the cuBLAS chain (silu(x@wg)*(x@wi))@wo, timed as a yardstick
@@ -435,8 +482,8 @@ def swiglu_designs() -> dict:
         x = torch.randn((t, wi.shape[0]), generator=g,
                         device="cuda").to(torch.bfloat16)
         reps = 20 if t <= 256 else 5
-        out[t] = {dz: cuda_ms(lambda: K.swiglu_cuda(x, wi, wg, wo, dz), reps)
-                  for dz in ("decode", "prefill")}
+        out[t] = {dz: graph_ms(lambda: K.swiglu_cuda(x, wi, wg, wo, dz),
+                               reps) for dz in ("decode", "prefill")}
         log(f"[kernels] swiglu T={t} d=3584 f=18944 bf16: decode design "
             f"{out[t]['decode']:.4f} ms, prefill design "
             f"{out[t]['prefill']:.4f} ms (wrapper takes "
@@ -444,20 +491,30 @@ def swiglu_designs() -> dict:
     return out
 
 
-#: the SSD check's shape: mamba2-1.3b's prefill of 2 x 512 tokens
-SSD_SHAPE = dict(b=2, s=512, h=64, p=64, n=128, chunk=256)
-#: the SSD kernel sums up to N + Q products in f32 in another order than the
-#: plain version (atol, as a share of max|plain|); a bf16 y also rounds once
-#: (rtol 2^-8), an f32 result is held at rtol 1e-4
-SSD_ATOL = 1e-4
-SSD_TOL_TEXT = ("atol 1e-4 x max|plain| + rtol 2^-8 (bf16 y) or 1e-4 (f32 "
-                "state), vs the plain version in f32")
+#: the SSD shapes: mamba2-1.3b's prefill (2 x 512 tokens, chunk 256) and
+#: forward (2 x 520, chunk _blk(520, 256) = 130), 64 heads of 64, state 128
+SSD_SHAPE = dict(b=2, h=64, p=64, n=128)
+SSD_CASES = {"": (torch.bfloat16, 512, 256), "forward": (torch.bfloat16, 520, 130),
+             "f32": (torch.float32, 512, 256),
+             "f32_forward": (torch.float32, 520, 130)}
+SSD_TOL_TEXT = {
+    torch.float32: "atol 1e-4 x max|plain| + rtol 1e-4, vs the plain version",
+    torch.bfloat16: "derived (ref.ssd_bf16_tolerance): 3 x 2^-8 Y_abs (y), "
+                    "2^-8 S_abs (state), + 1e-4 max|plain| + 2^-8 |plain|, "
+                    "vs the plain version in f32"}
+SSD_DESIGN = {
+    torch.bfloat16: "scores C B^T once per chunk (mma.sync m16n8k16), chunk "
+                    "states x^T B' (mma.sync), states passed in order, "
+                    "64-row query tiles: W' in registers into W' x and "
+                    "C S^T (mma.sync), x by a 2-stage cp.async ring",
+    torch.float32: "the same passes on the CUDA cores, 4x4 register patches "
+                   "from float4 rows of shared tiles"}
 
 
-def ssd_inputs(seed: int, dtype, dt_shift: float = 0.0):
+def ssd_inputs(seed: int, dtype, s: int, dt_shift: float = 0.0):
     """Inputs as mamba2's prefill gives them: x = silu(.), dt = softplus(.)
     (shifted down to make the decay slow), A = -exp(0.2 N(0,1))."""
-    b, s, h, p, n = (SSD_SHAPE[k] for k in "bshpn")
+    b, h, p, n = (SSD_SHAPE[k] for k in "bhpn")
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
@@ -468,53 +525,91 @@ def ssd_inputs(seed: int, dtype, dt_shift: float = 0.0):
     return x, dt, A, randn(b, s, n).to(dtype), randn(b, s, n).to(dtype)
 
 
-def check_ssd(name: str, got, want) -> float:
-    """y against y, state against state, at the SSD tolerance."""
-    err = 0.0
-    for part, g, w in zip(("y", "state"), got, want):
-        rtol = 2.0 ** -8 if g.dtype == torch.bfloat16 else 1e-4
-        atol = SSD_ATOL * float(w.float().abs().max())
-        err = max(err, check(f"{name} {part}", g, w, atol, rtol))
-    return err
+def check_ssd(name: str, got, want, args, q: int) -> float:
+    """y against y, state against state: f32 at atol 1e-4 x max|plain| +
+    rtol 1e-4, bf16 at the derived bound of ``ref.ssd_bf16_tolerance``."""
+    from repro_torch.kernels import ref
+    if got[0].dtype == torch.bfloat16:
+        bounds = ref.ssd_bf16_tolerance(*args, q, want)
+        return max(check(f"{name} {part}", g, w, bnd, 0.0) for part, g, w, bnd
+                   in zip(("y", "state"), got, want, bounds))
+    return max(check(f"{name} {part}", g, w, 1e-4 * float(w.abs().max()),
+                     1e-4) for part, g, w in zip(("y", "state"), got, want))
+
+
+def ssd_work(b: int, s: int, h: int, p: int, n: int, q: int,
+             elt: int) -> tuple:
+    """Operations and bytes the SSD function needs at this shape: the
+    scores C B^T once per chunk (they do not depend on the head); per head
+    W' x over the pairs j <= i, the chunk's state and, for the chunks after
+    the first (the state entering the first is zero), the carried state's
+    part of y; each input read once, y and the final state written once."""
+    flops = 0
+    for c0 in range(0, s, q):
+        L = min(q, s - c0)
+        pairs = L * (L + 1) // 2
+        flops += 2 * b * pairs * n + 2 * b * h * (
+            pairs * p + L * p * n + (L * p * n if c0 else 0))
+    nbytes = (2 * b * s * h * p + 2 * b * s * n) * elt + (b * s * h + h) * 4 \
+        + b * h * p * n * 4
+    return flops, nbytes
+
+
+def assert_repeats(name: str, fn) -> None:
+    """Two launches on the same inputs agree bit for bit."""
+    a, b = fn(), fn()
+    for u, v in zip(a if isinstance(a, tuple) else (a,),
+                    b if isinstance(b, tuple) else (b,)):
+        if not torch.equal(u, v):
+            raise RuntimeError(f"{name}: two launches differ")
+
+
+def ssd_case(dtype, s: int, q: int) -> dict:
+    from repro_torch.kernels import ref, ssd as K
+    args = ssd_inputs(4, dtype, s)
+    x, dt, A, Bm, Cm = args
+    f32 = (x.float(), dt, A, Bm.float(), Cm.float())
+    got = K.ssd_cuda(*args, q)
+    label = f"ssd {str(dtype).split('.')[-1]} S={s} chunk {q}"
+    err = check_ssd(f"{label} vs plain", got, ref.ssd_ref(*f32, q), args, q)
+    # the token-by-token recurrence holds the chunk math where the JAX
+    # reference is NaN (chunk 256: cum spans far past 88)
+    err_rec = check_ssd(f"{label} vs recurrence", got,
+                        ref.ssd_scan_ref(*f32), args, q)
+    assert_repeats(label, lambda: K.ssd_cuda(*args, q))
+    b, h, p, n = (SSD_SHAPE[k] for k in "bhpn")
+    peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
+    flops, nbytes = ssd_work(b, s, h, p, n, q, x.element_size())
+    return {"max_abs_err": err, "tol": SSD_TOL_TEXT[dtype],
+            "recurrence_max_abs_err": err_rec, "design": SSD_DESIGN[dtype],
+            "ms": graph_ms(lambda: K.ssd_cuda(*args, q), 20),
+            "eager_ms": cuda_ms(lambda: K.ssd_cuda(*args, q), 20),
+            "plain_ms": cuda_ms(lambda: ref.ssd_ref(*args, q), 5),
+            **bound(flops, peak, nbytes), "library_ms": None,
+            "library": NO_LIBRARY,
+            "shape": f"B={b} S={s} H={h} P={p} N={n} chunk {q}, x/B/C/y "
+                     f"{str(dtype).split('.')[-1]}"}
 
 
 def kernel_ssd(rows: dict) -> None:
     from repro_torch.kernels import ref, ssd as K
-    q = SSD_SHAPE["chunk"]
-    args = ssd_inputs(4, torch.bfloat16)
-    x, dt, A, Bm, Cm = args
-    f32 = (x.float(), dt, A, Bm.float(), Cm.float())
-    got = K.ssd_cuda(*args, q)
-    err = check_ssd("ssd vs plain", got, ref.ssd_ref(*f32, q))
-    # the token-by-token recurrence holds the chunk math where the JAX
-    # reference is NaN (chunk 256: cum spans far past 88); and, with dt
-    # small enough that the state carries across tiles and chunks, the f32
-    # kernel against it
-    err_rec = check_ssd("ssd vs recurrence", got, ref.ssd_scan_ref(*f32))
-    slow = ssd_inputs(5, torch.float32, dt_shift=-4.0)
-    err_slow = check_ssd("ssd f32 slow decay vs recurrence",
-                         K.ssd_cuda(*slow, q), ref.ssd_scan_ref(*slow))
-    b, s, h, p, n = x.shape + (Bm.shape[-1],)
-    chunks = s // q
-    pairs = q * (q + 1) // 2
-    flops = 2.0 * b * h * chunks * (pairs * (n + p) + 2 * q * p * n)
-    nbytes = (x.numel() * 2 + dt.numel() * 4 + A.numel() * 4
-              + (Bm.numel() + Cm.numel()) * 2 + x.numel() * 2
-              + b * h * p * n * 4)
-    bnd = bound(flops, PEAK_BF16, nbytes)
-    rows["ssd"] = {
-        "max_abs_err": err, "tol": SSD_TOL_TEXT,
-        "recurrence_max_abs_err": err_rec,
-        "slow_decay_f32_max_abs_err": err_slow,
-        "ms": cuda_ms(lambda: K.ssd_cuda(*args, q), 20),
-        "plain_ms": cuda_ms(lambda: ref.ssd_ref(*args, q), 5),
-        **bnd, "library_ms": None, "library": NO_LIBRARY,
-        "shape": f"B={b} S={s} H={h} P={p} N={n} chunk {q}, x/B/C/y bf16"}
+    for label, (dtype, s, q) in SSD_CASES.items():
+        row = ssd_case(dtype, s, q)
+        if label:
+            rows["ssd"][label] = row
+        else:
+            rows["ssd"] = row
+    # with dt small enough that the state carries across tiles and chunks,
+    # the f32 kernel against the recurrence
+    slow = ssd_inputs(5, torch.float32, 512, dt_shift=-4.0)
+    rows["ssd"]["slow_decay_f32_max_abs_err"] = check_ssd(
+        "ssd f32 slow decay vs recurrence", K.ssd_cuda(*slow, 256),
+        ref.ssd_scan_ref(*slow), slow, 256)
 
 
-def kernel_rglru(rows: dict) -> None:
+def rglru_case(s: int) -> dict:
     from repro_torch.kernels import ref, rglru as K
-    b, s, w = 2, 2560, 4096
+    b, w = 2, 4096
     g = torch.Generator(device="cuda").manual_seed(6)
     # gates as the model makes them: a = exp(log_a) in (0.9, 0.999)^r
     u = torch.empty(w, device="cuda").uniform_(0.9 ** 2, 0.999 ** 2,
@@ -527,13 +622,20 @@ def kernel_rglru(rows: dict) -> None:
     got = K.rglru_cuda(log_a, bb)
     atol, rtol = 2e-5, 2e-5         # tests/test_kernels.py, rglru
     err = check("rglru", got, ref.rglru_ref(log_a, bb), atol, rtol)
+    assert_repeats(f"rglru S={s}", lambda: K.rglru_cuda(log_a, bb))
     bnd = bound(3.0 * b * s * w, PEAK_F32, 12.0 * b * s * w)
-    rows["rglru"] = {
-        "max_abs_err": err, "tol": f"atol {atol} + rtol {rtol}",
-        "ms": cuda_ms(lambda: K.rglru_cuda(log_a, bb), 20),
-        "plain_ms": cuda_ms(lambda: ref.rglru_ref(log_a, bb), 3),
-        **bnd, "library_ms": None, "library": NO_LIBRARY,
-        "shape": f"B={b} S={s} W={w} f32"}
+    return {"max_abs_err": err, "tol": f"atol {atol} + rtol {rtol}",
+            "design": "32 channels x one batch row a block, 8 warps x 32 "
+                      "steps a window, segments combined in warp order",
+            "ms": graph_ms(lambda: K.rglru_cuda(log_a, bb), 20),
+            "plain_ms": cuda_ms(lambda: ref.rglru_ref(log_a, bb), 3),
+            **bnd, "library_ms": None, "library": NO_LIBRARY,
+            "shape": f"B={b} S={s} W={w} f32"}
+
+
+def kernel_rglru(rows: dict) -> None:
+    rows["rglru"] = rglru_case(2560)
+    rows["rglru"]["forward"] = rglru_case(2568)
 
 
 def small_model_check(arch: str) -> float:
@@ -571,7 +673,8 @@ def phase_kernels() -> dict:
     kernel_ssd(rows)
     kernel_rglru(rows)
     for name, r in rows.items():
-        for label in ("", "prefill", "local"):
+        for label in ("", "prefill", "local", "forward", "f32",
+                      "f32_forward"):
             rr = r.get(label, r) if label else r
             if label and label not in r:
                 continue
@@ -587,10 +690,15 @@ def phase_kernels() -> dict:
                 log(f"[kernels] {name} {label}: library max_err vs the plain "
                     f"version {rr['library_max_abs_err']:.3e}; design "
                     f"{rr.get('design', '')}")
-    log(f"[kernels] ssd vs the token-by-token recurrence: max_err "
-        f"{rows['ssd']['recurrence_max_abs_err']:.3e}; f32 with slow decay "
-        f"{rows['ssd']['slow_decay_f32_max_abs_err']:.3e} (tol "
-        f"{SSD_TOL_TEXT})")
+    for label in SSD_CASES:
+        rr = rows["ssd"][label] if label else rows["ssd"]
+        log(f"[kernels] ssd {label or 'bf16'} vs the token-by-token "
+            f"recurrence: max_err {rr['recurrence_max_abs_err']:.3e}; eager "
+            f"(host launches included) {rr['eager_ms']:.4f} ms; design "
+            f"{rr['design']}")
+    log(f"[kernels] ssd f32 with slow decay vs the recurrence: max_err "
+        f"{rows['ssd']['slow_decay_f32_max_abs_err']:.3e}; ssd and rglru "
+        f"repeat bit for bit")
     for arch in PATH_KERNELS:
         err = small_model_check(arch)
         log(f"[kernels] reduced {arch} f32 logits, card (kernels) vs CPU "
@@ -768,15 +876,22 @@ def profile_serve(model, params, wall_s: float) -> None:
         loop.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(f"{model.cfg.name} serve window", prof, wall_ms,
+                   f"unprofiled {wall_s * 1e3:.3f} ms")
+
+
+def report_profile(what: str, prof, wall_ms: float, note: str) -> None:
+    """A profiled window: the device's busy share of its wall time (one
+    stream, so kernels and copies do not overlap), the kernels by device
+    time and the CUDA runtime calls by host time."""
     events = prof.key_averages()
     device = [e for e in events
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     launches = sum(e.count for e in device)
-    log(f"[profile] serve window, profiled: wall {wall_ms:.3f} ms "
-        f"(unprofiled {wall_s * 1e3:.3f} ms), {launches} device ops, "
-        f"device time {busy_ms:.3f} ms -> busy {busy_ms / wall_ms:.4f}, "
-        f"idle {1 - busy_ms / wall_ms:.4f}")
+    log(f"[profile] {what}, profiled: wall {wall_ms:.3f} ms ({note}), "
+        f"{launches} device ops, device time {busy_ms:.3f} ms -> busy "
+        f"{busy_ms / wall_ms:.4f}, idle {1 - busy_ms / wall_ms:.4f}")
     for e in sorted(device, key=lambda e: e.self_device_time_total,
                     reverse=True)[:8]:
         log(f"[profile]   device {e.self_device_time_total / 1e3:9.3f} ms "
@@ -788,6 +903,26 @@ def profile_serve(model, params, wall_s: float) -> None:
                     reverse=True)[:5]:
         log(f"[profile]   host   {e.self_cpu_time_total / 1e3:9.3f} ms "
             f"x{e.count:<6d} {e.key[:80]}")
+
+
+def profile_prefill(model, params, prefill_s: float) -> None:
+    """One prefill of the model's own plan (2 x PREFILL_LEN tokens) again,
+    under torch.profiler: is it bound by the card or by the host?"""
+    from torch.profiler import ProfilerActivity, profile
+    cfg = model.cfg
+    b, s = 2, PREFILL_LEN[cfg.name]
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (b, s)).astype(np.int32)).cuda()
+    cache = model.init_cache(b, s)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        model.prefill(params, {"tokens": toks}, cache)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    report_profile(f"{cfg.name} {model.plan.compute_dtype} prefill 2x{s}",
+                   prof, wall_ms, f"unprofiled {prefill_s * 1e3:.3f} ms")
 
 
 def run_path(arch: str, counters: dict, seeds=(0,), card=None) -> dict:
@@ -812,9 +947,9 @@ def run_path(arch: str, counters: dict, seeds=(0,), card=None) -> dict:
         if arch in PREFILL_F32:
             phase_prefill(model.with_plan(model.plan.replace(
                 compute_dtype="float32")), params)
-            phase_prefill(model, params, held=False)
+            prefill = phase_prefill(model, params, held=False)
         else:
-            phase_prefill(model, params)
+            prefill = phase_prefill(model, params)
     log(f"[prefill] {arch} peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     wall_s = phase_serve(model, params)
@@ -825,7 +960,7 @@ def run_path(arch: str, counters: dict, seeds=(0,), card=None) -> dict:
         raise RuntimeError(f"{arch}: kernels of its path never launched: "
                            f"{missing} ({launches})")
     return {"launches": launches, "model": model, "params": params,
-            "wall_s": wall_s}
+            "wall_s": wall_s, "prefill_s": prefill["prefill_s"]}
 
 
 def main() -> int:
@@ -856,6 +991,8 @@ def main() -> int:
             launches[name] += n
         if arch == "qwen2-7b":          # outside the counted path
             profile_serve(path["model"], path["params"], path["wall_s"])
+        if arch == "mamba2-1.3b":
+            profile_prefill(path["model"], path["params"], path["prefill_s"])
         del path
         torch.cuda.empty_cache()
     log("kernels " + json.dumps(launches))

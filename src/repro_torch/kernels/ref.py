@@ -70,6 +70,37 @@ def ssd_ref(x, dt, A, Bm, Cm, chunk=64):
     return ssd_chunked(x, dt, A, Bm, Cm, chunk)
 
 
+#: bf16's unit roundoff: a bf16 has an 8-bit significand, so rounding to
+#: nearest moves a value by at most 2^-8 of itself
+BF16_UNIT = 2.0 ** -8
+#: the bf16 SSD kernel's roundings to bf16 before a product, as multiples
+#: of BF16_UNIT on each path: y meets W' (intra-chunk) or B' then S_{c-1}
+#: (carried state: 2u + u^2 <= 3u); the final state meets B' only
+SSD_BF16_ROUNDINGS = {"y": 3, "state": 1}
+
+
+def ssd_bf16_tolerance(x, dt, A, Bm, Cm, chunk, want):
+    """Elementwise bounds on |kernel - want| for the bf16 SSD kernel, where
+    ``want`` = (y, state) of the plain version in f32 on the same bf16
+    inputs.  Each rounding moves its product by at most BF16_UNIT of the
+    product's sum of |terms|; with dt >= 0 and every decay factor > 0 the
+    plain version on absolute values bounds each such sum elementwise:
+    ``Y_abs, S_abs = ssd_ref(|x|, dt, A, |B|, |C|, chunk)``.  Returns (y
+    bound, state bound):
+    ``k BF16_UNIT X_abs + 1e-4 max|want| + 2^-8 |want|`` (the last term:
+    y's own rounding as it is stored; 1e-4 max|want|: f32 sums in another
+    order), with k from SSD_BF16_ROUNDINGS."""
+    f = [t.float() for t in (x, Bm, Cm)]
+    y_abs, s_abs = ssd_ref(f[0].abs(), dt.float(), A.float(), f[1].abs(),
+                           f[2].abs(), chunk)
+    out = []
+    for part, xa, w in (("y", y_abs, want[0]), ("state", s_abs, want[1])):
+        w = w.float()
+        out.append(SSD_BF16_ROUNDINGS[part] * BF16_UNIT * xa
+                   + 1e-4 * float(w.abs().max()) + 2.0 ** -8 * w.abs())
+    return tuple(out)
+
+
 def ssd_scan_ref(x, dt, A, Bm, Cm):
     """Mamba2 SSD token by token, in f32: ``h = exp(dt·A)·h + dt·x⊗B``,
     ``y = C·h`` (the decode step's arithmetic over a whole sequence).

@@ -1,8 +1,10 @@
 """RG-LRU linear recurrence on the H100: binding of ``csrc/rglru.cu``.
 
 Counterpart of ``repro.kernels.rglru`` (the Pallas TPU kernel
-``rglru_pallas``).  One thread per (batch, width) channel loops over time;
-see the source for its bound and design.
+``rglru_pallas``).  One block per 32 channels of one batch row scans the
+whole sequence in windows, each window split across the warps and their
+segments combined in shared memory; see the source for its bound and
+design.
 """
 from __future__ import annotations
 

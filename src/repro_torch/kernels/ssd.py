@@ -1,10 +1,12 @@
 """Mamba2 SSD chunked scan on the H100: binding of ``csrc/ssd.cu``.
 
 Counterpart of ``repro.kernels.ssd`` (the Pallas TPU kernel
-``ssd_pallas``).  One block per (head, batch) walks the chunks in order
-with the (P, N) state in shared memory; within a chunk, 64-row query tiles
-meet the key tiles below the diagonal, masked before the exponential.  See
-the source for its bound and design.
+``ssd_pallas``).  Every chunk runs in parallel: one launch computes each
+chunk's scores C Bᵀ (once for all heads) and each chunk's own state,
+passes the states across chunks in order, then scans each 64-row query
+tile against its key tiles below the diagonal, masked before the
+exponential (bf16 products on the tensor cores, f32 on the CUDA cores).
+See the source for its bound, design and roundings.
 """
 from __future__ import annotations
 
@@ -13,9 +15,10 @@ import torch
 from repro_torch.kernels._build import (CudaKernel, c_int, c_ptr,
                                         check_operand, stream_of)
 
-KERNEL = CudaKernel("ssd", [c_ptr] * 7 + [c_int] * 7 + [c_ptr])
+KERNEL = CudaKernel("ssd", [c_ptr] * 11 + [c_int] * 7 + [c_ptr])
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 128
+MAX_STATE = 128
 
 
 def ssd_cuda(x, dt, A, Bm, Cm, chunk: int):
@@ -35,13 +38,28 @@ def ssd_cuda(x, dt, A, Bm, Cm, chunk: int):
         raise ValueError(f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, Bm "
                          f"{tuple(Bm.shape)}, Cm {tuple(Cm.shape)} do not "
                          f"fit x {tuple(x.shape)}")
-    if p > MAX_HEAD_DIM:
-        raise ValueError(f"head dim {p} is over {MAX_HEAD_DIM}")
+    if p > MAX_HEAD_DIM or n > MAX_STATE:
+        raise ValueError(f"head dim {p} / state {n} over {MAX_HEAD_DIM} / "
+                         f"{MAX_STATE}")
     if s < 1 or chunk < 1:
         raise ValueError(f"sequence {s} and chunk {chunk} must be >= 1")
+    q = min(chunk, s)
+    nc = -(-s // q)
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
+    qp = 64 * -(-q // 64)
+    # scratch, in one allocation: each chunk's own state (f32), the state
+    # entering it (x's dtype), the chunks' cumsums of dt·A (B,H,S) and each
+    # chunk's scores C Bᵀ (B,nc,QP,QP), QP = 64·ceil(Q/64)
+    parts = [b * nc * h * p * n * 4, b * nc * h * p * n * x.element_size(),
+             b * h * s * 4, b * nc * qp * qp * 4]
+    ends = [0]
+    for size in parts:
+        ends.append(ends[-1] + -(-size // 256) * 256)
+    ws = torch.empty(ends[-1], dtype=torch.uint8, device=dev)
+    base = ws.data_ptr()
     KERNEL.launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),
-                  Cm.data_ptr(), y.data_ptr(), state.data_ptr(), b, s, h, p,
-                  n, min(chunk, s), DTYPES[x.dtype], stream_of(x))
+                  Cm.data_ptr(), y.data_ptr(), state.data_ptr(),
+                  *(base + e for e in ends[:4]), b, s, h, p, n, q,
+                  DTYPES[x.dtype], stream_of(x))
     return y, state

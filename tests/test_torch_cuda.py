@@ -4,7 +4,13 @@ f32 results keep the tolerances of tests/test_kernels.py (the f32 kernels
 compute on the CUDA cores and round nowhere).  bf16 results are held
 against the plain version run in f32 on the same bf16 inputs:
 
-* ssd rounds once, to y: rtol 2^-8 (bf16's 8-bit mantissa).
+* ssd runs its chunk products on the tensor cores and rounds B' (the rows
+  of B weighted by dt_j exp(cum_L - cum_j)), the carried state S and the
+  decayed scores W' to bf16 before their products.  Each rounding moves
+  a product by at most 2^-8 (bf16's unit roundoff) of its sum of |terms|,
+  and the plain version run on |x|, |B|, |C| bounds those sums
+  elementwise: y is held at 3 x 2^-8 Y_abs, the state at 2^-8 S_abs, each
+  + 1e-4 max|plain| + 2^-8 |plain| (``ref.ssd_bf16_tolerance``).
 * flash_attention runs on the tensor cores and rounds P to bf16 before PV,
   as the library's kernels do: each weight of a row moves by at most 2^-9
   of itself and the weights sum to 1, so the output moves by at most
@@ -22,7 +28,8 @@ against the plain version run in f32 on the same bf16 inputs:
   ``swiglu_ref(round_a=True)``, is no tight mirror at full width: the two
   f32 computations of a round to neighbouring bf16 values here and
   there, and at T=1024, f=18944 those steps add up past 1e-5.)
-* The bf16 swiglu adds its split sums in a fixed order: two launches agree
+* The bf16 swiglu adds its split sums in a fixed order, and ssd and rglru
+  have one writer per output and sums in a fixed order: two launches agree
   bit for bit.
 
 jax-free.  Every test takes the ``cuda`` fixture, which skips (with the
@@ -188,13 +195,19 @@ def _ssd_inputs(rng, b, s, h, p, n, dtype, dt_shift=0.0):
             _randn(rng, (b, s, n), dtype))
 
 
-def _ssd_close(got, want):
-    """Sums of up to N + Q f32 products in another order (atol 1e-4 x the
-    largest value); a bf16 y also rounds once (rtol 2^-8)."""
-    for g, w in zip(got, want):
-        rtol = 2.0 ** -8 if g.dtype == torch.bfloat16 else 1e-4
-        torch.testing.assert_close(g.float(), w.float(), rtol=rtol,
-                                   atol=1e-4 * float(w.abs().max()))
+def _ssd_close(got, want, args, chunk):
+    """f32: sums of up to N + Q f32 products in another order (atol 1e-4 x
+    the largest value, rtol 1e-4).  bf16: the derived bound of
+    ``ref.ssd_bf16_tolerance`` (see the module docstring)."""
+    if got[0].dtype == torch.float32:
+        for g, w in zip(got, want):
+            torch.testing.assert_close(g, w.float(), rtol=1e-4,
+                                       atol=1e-4 * float(w.abs().max()))
+        return
+    bounds = ref.ssd_bf16_tolerance(*args, chunk, want)
+    for g, w, bnd in zip(got, want, bounds):
+        assert g.shape == w.shape
+        _assert_within(g, w.float(), bnd, 0.0)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -210,7 +223,18 @@ def test_ssd_kernel(cuda, dtype, s, chunk, p, n):
     got = SD.ssd_cuda(*args, chunk)
     assert got[0].dtype == dtype and got[1].dtype == torch.float32
     _ssd_close(got, ref.ssd_ref(*f32, chunk) if s % chunk == 0
-               else ref.ssd_scan_ref(*f32))
+               else ref.ssd_scan_ref(*f32), args, chunk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_kernel_fast_decay(cuda, dtype):
+    """dt ~ 3: every 64-row tile spans far more than the split's limit, so
+    the diagonal tiles take exp(cum_i − cum_j) masked first (and chunk
+    256's spans reach the thousands, far past f32's 88)."""
+    rng = np.random.default_rng(11)
+    args = _ssd_inputs(rng, 2, 512, 4, 64, 128, dtype, 3.0)
+    got = SD.ssd_cuda(*args, 256)
+    _ssd_close(got, ref.ssd_scan_ref(*[a.float() for a in args]), args, 256)
 
 
 @pytest.mark.parametrize("chunk", [32, 64, 256])
@@ -218,7 +242,33 @@ def test_ssd_kernel_against_the_recurrence(cuda, chunk):
     """Slow decay: the state carries across key tiles and chunks."""
     rng = np.random.default_rng(chunk)
     args = _ssd_inputs(rng, 2, 512, 4, 64, 128, torch.float32, -4.0)
-    _ssd_close(SD.ssd_cuda(*args, chunk), ref.ssd_scan_ref(*args))
+    _ssd_close(SD.ssd_cuda(*args, chunk), ref.ssd_scan_ref(*args), args,
+               chunk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,chunk", [(512, 256), (520, 130)])
+def test_ssd_kernel_at_mamba2_shapes(cuda, dtype, s, chunk):
+    """mamba2-1.3b's prefill (2 x 512, chunk 256) and forward (2 x 520,
+    chunk _blk(520, 256) = 130: tiles 64 + 64 + 2) at its 64 heads of 64,
+    state 128; held against the plain version and the recurrence."""
+    rng = np.random.default_rng(s)
+    args = _ssd_inputs(rng, 2, s, 64, 64, 128, dtype)
+    f32 = [a.float() for a in args]
+    got = SD.ssd_cuda(*args, chunk)
+    _ssd_close(got, ref.ssd_ref(*f32, chunk), args, chunk)
+    _ssd_close(got, ref.ssd_scan_ref(*f32), args, chunk)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,chunk,p,n", [(520, 130, 64, 128),
+                                         (300, 256, 24, 36)])
+def test_ssd_repeats_bit_for_bit(cuda, dtype, s, chunk, p, n):
+    """One writer per output, sums in a fixed order: two launches agree."""
+    args = _ssd_inputs(np.random.default_rng(3), 2, s, 4, p, n, dtype)
+    y1, s1 = SD.ssd_cuda(*args, chunk)
+    y2, s2 = SD.ssd_cuda(*args, chunk)
+    assert torch.equal(y1, y2) and torch.equal(s1, s2)
 
 
 @pytest.mark.parametrize("b,s,w", [(2, 64, 96), (1, 37, 4096),
@@ -231,6 +281,28 @@ def test_rglru_kernel(cuda, b, s, w):
     torch.testing.assert_close(h, ref.rglru_ref(log_a, bb), atol=2e-5,
                                rtol=2e-5)
     assert bool((h.abs() <= bb.abs().cumsum(1) + 1e-4).all())
+
+
+def _rglru_inputs(rng, b, s, w):
+    log_a = -torch.abs(_randn(rng, (b, s, w))) * 0.2
+    return log_a, _randn(rng, (b, s, w), scale=0.5)
+
+
+@pytest.mark.parametrize("b,s,w", [(2, 2568, 4096), (2, 300, 33),
+                                   (1, 129, 4095), (2, 2560, 130)])
+def test_rglru_kernel_at_path_shapes_and_ragged_widths(cuda, b, s, w):
+    """recurrentgemma-9b's forward (2 x 2568: 10 windows of 256 + 8) and
+    widths that leave a block's last warp lanes past W."""
+    log_a, bb = _rglru_inputs(np.random.default_rng(s + w), b, s, w)
+    h = RG.rglru_cuda(log_a, bb)
+    torch.testing.assert_close(h, ref.rglru_ref(log_a, bb), atol=2e-5,
+                               rtol=2e-5)
+    assert bool((h.abs() <= bb.abs().cumsum(1) + 1e-4).all())
+
+
+def test_rglru_repeats_bit_for_bit(cuda):
+    log_a, bb = _rglru_inputs(np.random.default_rng(4), 2, 777, 200)
+    assert torch.equal(RG.rglru_cuda(log_a, bb), RG.rglru_cuda(log_a, bb))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -323,6 +395,9 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
         SD.ssd_cuda(args[0], args[1].bfloat16(), *args[2:], 8)
     with pytest.raises(ValueError):          # head dim over 128
         SD.ssd_cuda(_randn(rng, (1, 16, 2, 136)), *args[1:], 8)
+    with pytest.raises(ValueError):          # state over 128
+        wide = _randn(rng, (1, 16, 136))
+        SD.ssd_cuda(*args[:3], wide, wide, 8)
     with pytest.raises(TypeError):           # f32 only
         RG.rglru_cuda(args[3].bfloat16(), args[4].bfloat16())
 

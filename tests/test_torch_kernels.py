@@ -275,6 +275,187 @@ def test_ssd_picks_the_reference_chunk():
 
 
 # ---------------------------------------------------------------------------
+# Mirrors of the CUDA kernels' arithmetic (csrc/ssd.cu, csrc/rglru.cu)
+# ---------------------------------------------------------------------------
+
+def _bf16(t):
+    return t.to(torch.bfloat16).float()
+
+
+def ssd_passes(x, dt, A, Bm, Cm, chunk, tile=64, rounded=False,
+               split_span=64.0):
+    """The SSD kernel's decomposition in plain PyTorch: chunks of
+    min(chunk, S) positions (the last may be shorter); pass 1, each chunk's
+    state s_c = xᵀ B' with B' = B · dt_j exp(cum_L − cum_j); pass 2, S_c =
+    exp(cum_L) S_{c-1} + s_c in chunk order; pass 3, W' = (C Bᵀ) · exp(cum_i
+    − cum_j) · dt_j for j ≤ i (masked before the exponential; the decay
+    taken as exp(cum_i − cum_i0) exp(cum_i0 − cum_j), i0 the query
+    ``tile``'s first row, below the diagonal tile and on it where the
+    tile's span cum_i0 − cum_last is under ``split_span``), y = W' x +
+    exp(cum_i) C S_{c-1}ᵀ.
+    ``rounded`` rounds B', S_{c-1} and W' to bf16 before their products, as
+    the bf16 kernel does.  Returns (y in x's dtype, final state f32)."""
+    b, s, h, p = x.shape
+    q = min(chunk, s)
+    rnd = _bf16 if rounded else (lambda t: t)
+    xf, Bf, Cf, dtf = x.float(), Bm.float(), Cm.float(), dt.float()
+    state = torch.zeros((b, h, p, Bm.shape[-1]))
+    y = torch.empty((b, s, h, p))
+    for c0 in range(0, s, q):
+        sl = slice(c0, min(s, c0 + q))
+        xc, bc, cc, dtc = xf[:, sl], Bf[:, sl], Cf[:, sl], dtf[:, sl]
+        L = xc.shape[1]
+        cum = torch.cumsum(dtc * A.float(), dim=1)                 # (B,L,H)
+        w = dtc * torch.exp(cum[:, -1:] - cum)
+        bprime = rnd(bc[:, :, None, :] * w[..., None])              # (B,L,H,N)
+        s_c = torch.einsum("bjhp,bjhn->bhpn", xc, bprime)
+        enter = rnd(state)
+        state = torch.exp(cum[:, -1])[..., None, None] * state + s_c
+        i = torch.arange(L)
+        i0 = (i // tile) * tile
+        last = torch.clamp(i0 + tile, max=L) - 1
+        below = (i[None, :] < i0[:, None])[None, :, :, None]      # (1,i,j,1)
+        diag = ((i[None, :] <= i[:, None])[None, :, :, None]) & ~below
+        split = (cum[:, i0] - cum[:, last] < split_span)[:, :, None, :]
+        fact = below | (diag & split)                               # (B,i,j,H)
+        ci = cum[:, :, None, :]                                     # (B,i,1,H)
+        cj = cum[:, None, :, :]                                     # (B,1,j,H)
+        c0i = cum[:, i0][:, :, None, :]
+        neg = torch.tensor(float("-inf"))
+        decay = torch.where(
+            fact,
+            torch.exp(torch.where(fact, ci - c0i, neg))
+            * torch.exp(torch.where(fact, c0i - cj, neg)),
+            torch.exp(torch.where(diag & ~split, ci - cj, neg)))
+        gram = torch.einsum("bin,bjn->bij", cc, bc)
+        wp = rnd(gram[..., None] * decay * dtc[:, None, :, :])     # (B,i,j,H)
+        y_in = torch.einsum("bijh,bjhp->bihp", wp, xc)
+        y_st = torch.einsum("bin,bhpn->bihp", cc, enter) \
+            * torch.exp(cum)[..., None]
+        y[:, sl] = y_st + y_in
+    return y.to(x.dtype), state
+
+
+@pytest.mark.parametrize("s,chunk", [(32, 8), (64, 16), (128, 64), (128, 128)])
+def test_ssd_pass_mirror_matches_pallas_and_oracle(s, chunk):
+    """The decomposition in f32 against the Pallas kernel (interpret mode),
+    the jnp oracle and the port's plain version, at 1e-4 (dt halved where
+    the JAX reference would overflow, fault C1)."""
+    args = _ssd_inputs(np.random.default_rng(s + chunk), 2, s, 3, 8, 4,
+                       dt_scale=0.25)
+    y, hs = ssd_passes(*map(_t, args), chunk)
+    jargs = [jnp.asarray(a) for a in args]
+    for want in (ssd_pallas(*jargs, chunk=chunk),
+                 jref.ssd_ref(*jargs, chunk=chunk)):
+        _close(y, want[0], (1e-4, 1e-4))
+        _close(hs, want[1], (1e-4, 1e-4))
+    for got, want in zip((y, hs), ref.ssd_ref(*map(_t, args), chunk)):
+        torch.testing.assert_close(got, want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.parametrize("split_span", [64.0, 0.0])
+@pytest.mark.parametrize("s,chunk,p,n", [(300, 256, 8, 4), (257, 64, 24, 36),
+                                         (7, 256, 16, 16), (520, 130, 8, 16)])
+def test_ssd_pass_mirror_ragged_chunks_against_the_recurrence(s, chunk, p, n,
+                                                              split_span):
+    """Short last chunks and tiles (130 = 64 + 64 + 2) in f32 against the
+    token-by-token recurrence, at 1e-4 of the largest value, with the
+    diagonal tiles' decay split where their span allows and never split."""
+    args = [_t(a) for a in _ssd_inputs(np.random.default_rng(s), 1, s, 2, p,
+                                       n)]
+    for got, want in zip(ssd_passes(*args, chunk, split_span=split_span),
+                         ref.ssd_scan_ref(*args)):
+        torch.testing.assert_close(got, want, rtol=1e-4,
+                                   atol=1e-4 * float(want.abs().max()))
+
+
+@pytest.mark.parametrize("s,chunk,scan", [(64, 16, False), (128, 64, False),
+                                          (512, 256, True), (520, 130, True)])
+def test_ssd_bf16_roundings_within_the_derived_bound(s, chunk, scan):
+    """The bf16 kernel's roundings (B', S, W') on bf16 inputs stay within
+    ``ref.ssd_bf16_tolerance`` of the f32 plain version (chunk 256: of the
+    recurrence, where the JAX reference is NaN), and of the Pallas kernel
+    at chunks where it is finite; and they do move the result."""
+    rng = np.random.default_rng(s)
+    x, dt, A, Bm, Cm = _ssd_inputs(rng, 2, s, 3, 16, 32,
+                                   dt_scale=1.0 if scan else 0.25)
+    xb, Bb, Cb = (_bf16(_t(a)) for a in (x, Bm, Cm))
+    args = (xb, _t(dt), _t(A), Bb, Cb)
+    got = ssd_passes(*args, chunk, rounded=True)
+    want = ref.ssd_scan_ref(*args) if scan else ref.ssd_ref(*args, chunk)
+    if not scan:
+        jw = ssd_pallas(*map(jnp.asarray, (xb.numpy(), dt, A, Bb.numpy(),
+                                           Cb.numpy())), chunk=chunk)
+        for g, w in zip(want, jw):
+            _close(g, w, (1e-4, 1e-4))
+    bounds = ref.ssd_bf16_tolerance(*args, chunk, want)
+    for g, w, bnd in zip(got, want, bounds):
+        assert bool(((g - w).abs() <= bnd).all())
+    assert not torch.allclose(got[0], want[0], atol=1e-6, rtol=0)
+
+
+def test_ssd_bf16_tolerance_is_what_the_docstring_says():
+    args = [_t(a) for a in _ssd_inputs(np.random.default_rng(2), 1, 16, 2,
+                                       4, 4)]
+    want = ref.ssd_ref(*args, 8)
+    absy, abss = ref.ssd_ref(args[0].abs(), args[1], args[2],
+                             args[3].abs(), args[4].abs(), 8)
+    by, bs = ref.ssd_bf16_tolerance(*args, 8, want)
+    for bnd, xa, w, k in ((by, absy, want[0], 3), (bs, abss, want[1], 1)):
+        torch.testing.assert_close(
+            bnd, k * 2.0 ** -8 * xa + 1e-4 * w.abs().max()
+            + 2.0 ** -8 * w.abs())
+
+
+def rglru_window_scan(log_a, b, seg=32, warps=8):
+    """The RG-LRU kernel's scan in plain PyTorch: windows of warps·seg
+    steps; each segment of seg steps scanned from h = 0 with the running
+    product of a = exp(log_a); the segments' (product, end) pairs folded in
+    warp order from the window's carry-in; h = local + product · carry_in.
+    Steps past S enter as (log_a, b) = (0, 0)."""
+    bsz, s, w = log_a.shape
+    win = warps * seg
+    pad = -s % win
+    a = torch.exp(torch.nn.functional.pad(log_a.float(), (0, 0, 0, pad)))
+    bp = torch.nn.functional.pad(b.float(), (0, 0, 0, pad))
+    n = (s + pad) // win
+    a = a.reshape(bsz, n, warps, seg, w)
+    bp = bp.reshape(bsz, n, warps, seg, w)
+    loc = torch.empty_like(bp)
+    prod = torch.empty_like(bp)
+    hv = torch.zeros((bsz, n, warps, w))
+    pv = torch.ones((bsz, n, warps, w))
+    for u in range(seg):
+        hv = a[:, :, :, u] * hv + bp[:, :, :, u]
+        pv = pv * a[:, :, :, u]
+        loc[:, :, :, u], prod[:, :, :, u] = hv, pv
+    h = torch.empty_like(bp)
+    carry = torch.zeros((bsz, w))
+    for k in range(n):
+        for m in range(warps):
+            h[:, k, m] = loc[:, k, m] + prod[:, k, m] * carry[:, None]
+            carry = prod[:, k, m, -1] * carry + loc[:, k, m, -1]
+    return h.reshape(bsz, n * win, w)[:, :s]
+
+
+@pytest.mark.parametrize("s,w,seg,warps", [(600, 64, 32, 8), (37, 96, 16, 8),
+                                           (500, 130, 16, 8), (200, 40, 8, 4),
+                                           (129, 33, 4, 2), (64, 32, 32, 1)])
+def test_rglru_window_scan_mirror_matches_pallas_and_oracle(s, w, seg, warps):
+    """Several segment and window sizes, S and W that are not multiples of
+    the window or of 32, at tests/test_kernels.py's 2e-5."""
+    log_a, b = _rglru_inputs(np.random.default_rng(s + w), 2, s, w)
+    h = rglru_window_scan(_t(log_a), _t(b), seg, warps)
+    ja, jb = jnp.asarray(log_a), jnp.asarray(b)
+    for want in (rglru_pallas(ja, jb, block_w=w, block_t=s),
+                 jref.rglru_ref(ja, jb)):
+        _close(h, want, (2e-5, 2e-5))
+    torch.testing.assert_close(h, ref.rglru_ref(_t(log_a), _t(b)),
+                               atol=2e-5, rtol=2e-5)
+    assert bool((h.abs() <= _t(np.cumsum(np.abs(b), axis=1)) + 1e-4).all())
+
+
+# ---------------------------------------------------------------------------
 # Dispatch and argument checks
 # ---------------------------------------------------------------------------
 
