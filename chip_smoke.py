@@ -14,9 +14,16 @@ a non-zero exit and no result line:
               (HMMA/HGMMA) and atomic instructions of each function of the
               three tensor-core kernels (flash_attention, swiglu, ssd:
               each of ssd's bf16 functions must hold HMMA/HGMMA) and of
-              rglru (no RED/ATOM in any function of ssd or rglru);
+              rglru (no RED/ATOM in any function of ssd or rglru), and the
+              special-function (MUFU) instructions of mriq, which must
+              hold some and whose ptxas report must show no stack frame
+              and no spills;
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              the shapes the main path gives it (flash_attention also at
+              the shapes the main path gives it (mriq also against the
+              plain version in f64 at the bound its arithmetic allows
+              (ref.mriq_f32_tolerance), at N 262147 / M 3073 and with
+              phases up to 2^12 turns, and launched twice and held bit
+              for bit; its SFU floor on a log line; flash_attention also at
               recurrentgemma-9b's D=256 with its 2048 window; ssd in bf16
               and f32 at mamba2-1.3b's prefill (S 512, chunk 256) and
               forward (S 520, chunk 130), also against the token-by-token
@@ -34,8 +41,11 @@ a non-zero exit and no result line:
               plain path on the CPU;
   4. MRI-Q    the paper's Fig. 5 at its size (64^3 voxels, 3072 k-space
               points): the plain version on the host CPU against the
-              offloaded leg (H2D + kernel + D2H), each leg's Watt*seconds at
-              the paper's measured R740 node points;
+              offloaded leg (H2D + kernel + D2H, CUDA events between the
+              parts), run 5 times (the first 4 just before the launch
+              counts are set to 0): each part's median and range, each
+              leg's Watt*seconds (the offloaded leg's median) at the
+              paper's measured R740 node points;
   5. models   for each of qwen2-7b, mamba2-1.3b and recurrentgemma-9b at
               full width under the offload plan (every site on the
               kernels), random weights from seeded generators on the card,
@@ -255,12 +265,16 @@ TC_FUNCTIONS = {"ssd": "_tc"}
 #: functions (by parts of their name; "" for all) whose sums must hold no
 #: atomic instruction
 NO_ATOMICS = {"swiglu": ("gemm", "combine"), "ssd": ("",), "rglru": ("",)}
+#: kernels whose ptxas report must show no stack frame and no spills
+NO_SPILLS = ("mriq",)
+#: kernels whose SASS must hold special-function-unit (MUFU) instructions
+SFU = ("mriq",)
 
 
 def sass_counts(lib: Path) -> dict | None:
-    """Tensor-core (HMMA/HGMMA) and atomic (RED/ATOM) instructions in each
-    function of a built library, from ``cuobjdump -sass``; None where the
-    toolkit has no cuobjdump."""
+    """Tensor-core (HMMA/HGMMA), atomic (RED/ATOM) and special-function
+    (MUFU) instructions in each function of a built library, from
+    ``cuobjdump -sass``; None where the toolkit has no cuobjdump."""
     from repro_torch.kernels._build import nvcc
     tool = Path(nvcc()).parent / "cuobjdump"
     if not tool.is_file():
@@ -273,7 +287,7 @@ def sass_counts(lib: Path) -> dict | None:
     for line in sass.splitlines():
         if "Function : " in line:
             fn = line.split("Function : ")[1].strip()
-            counts[fn] = {"tensor_core": 0, "atomic": 0}
+            counts[fn] = {"tensor_core": 0, "atomic": 0, "mufu": 0}
         elif fn is not None:
             # "/*0120*/  @P0 HMMA.16816.F32.BF16 R4, ... ;  /* 0x... */"
             m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z]\w*)",
@@ -281,6 +295,7 @@ def sass_counts(lib: Path) -> dict | None:
             op = m.group(1) if m else ""
             counts[fn]["tensor_core"] += op in ("HMMA", "HGMMA")
             counts[fn]["atomic"] += op.startswith(("RED", "ATOM"))
+            counts[fn]["mufu"] += op == "MUFU"
     if filt.is_file():
         names = subprocess.run([str(filt)], input="\n".join(counts),
                                capture_output=True, text=True,
@@ -300,14 +315,22 @@ def phase_build() -> None:
         for line in text.splitlines():
             if any(w in line for w in ("registers", "spill", "Compiling")):
                 log(f"[build] {name}: {line.strip()}")
-    for name in dict.fromkeys(TENSOR_CORE + tuple(NO_ATOMICS)):
+            # "8 bytes stack frame, 12 bytes spill stores, 12 bytes spill
+            # loads"
+            if name in NO_SPILLS and "stack frame" in line and any(
+                    int(v) for v in re.findall(r"(\d+) bytes", line)):
+                raise RuntimeError(f"{name}: stack frame or spills: "
+                                   f"{line.strip()}")
+    for name in dict.fromkeys(TENSOR_CORE + tuple(NO_ATOMICS) + SFU):
         counts = sass_counts(_build.library_path(name))
         if counts is None:
             log(f"[build] {name}: no cuobjdump, SASS not read")
             continue
         for fn, c in counts.items():
             log(f"[build] {name} SASS: {c['tensor_core']} HMMA/HGMMA, "
-                f"{c['atomic']} RED/ATOM in {fn[:110]}")
+                f"{c['atomic']} RED/ATOM, {c['mufu']} MUFU in {fn[:110]}")
+        if name in SFU and not sum(c["mufu"] for c in counts.values()):
+            raise RuntimeError(f"{name}: no MUFU instruction in SASS")
         if name in TENSOR_CORE and not sum(
                 c["tensor_core"] for c in counts.values()):
             raise RuntimeError(f"{name}: no tensor-core instruction in SASS")
@@ -327,30 +350,88 @@ def phase_build() -> None:
 # ---------------------------------------------------------------------------
 
 
-def mriq_data(seed: int = 0, n: int = 64 ** 3, m: int = 3072):
-    rng = np.random.default_rng(seed)
-    kx, ky, kz = (rng.standard_normal(m, dtype=np.float32) for _ in range(3))
-    phi = rng.random(m, dtype=np.float32)
-    x, y, z = (rng.standard_normal(n, dtype=np.float32) for _ in range(3))
-    return [torch.from_numpy(a) for a in (kx, ky, kz, phi, x, y, z)]
+#: the SFU's sine/cosine rate assumed for its floor: 16 lanes an SM a
+#: clock on 132 SMs at the H100 SXM's 1.98 GHz boost clock
+SFU_RATE = 132 * 16 * 1.98e9
+MRIQ_DESIGN = ("phase in turns reduced exactly; sin/cos on the SFU (MUFU); "
+               "4 voxels a thread, k-space in shared memory; group sums of "
+               "96 into Kahan sums")
+
+
+def mriq_truth(label: str, args, vs_plain: bool = True) -> dict:
+    """The kernel against the f32 plain version (atol 5e-4 + rtol 1e-4,
+    tests/test_kernels.py's) where ``vs_plain``, and against the f64 plain
+    version: elementwise within ``ref.mriq_f32_tolerance`` (derived from
+    the kernel's arithmetic), with a max error at most twice the f32 plain
+    version's; two launches bit for bit.  Without ``vs_plain`` (large
+    phases) the f32 plain version must itself miss f64 by more than that
+    tolerance: it rounds 2 pi t of thousands of turns."""
+    from repro_torch.kernels import mriq as K, ref
+    got = K.mriq_cuda(*args)
+    assert_repeats(label, lambda: K.mriq_cuda(*args))
+    plain = ref.mriq_ref(*args)
+    exact = ref.mriq_ref(*[a.double() for a in args])
+    bnd = ref.mriq_f32_tolerance(*args)
+    row = {"max_abs_err": None, "f64_max_abs_err": 0.0,
+           "plain_f64_max_abs_err": 0.0, "f64_bound_used": 0.0}
+    for part, g, p, e in zip(("qr", "qi"), got, plain, exact):
+        if vs_plain:
+            row["max_abs_err"] = max(row["max_abs_err"] or 0.0, check(
+                f"{label} {part}", g, p, 5e-4, 1e-4))
+        err = (g.double() - e).abs()
+        p_err = float((p.double() - e).abs().max())
+        used = float((err / bnd).max())
+        if used > 1:
+            raise RuntimeError(f"{label} {part}: over the derived f64 bound "
+                               f"({used:.3f} of it)")
+        if float(err.max()) > 2 * p_err:
+            raise RuntimeError(f"{label} {part}: f64 error {err.max():.3e} "
+                               f"over twice the plain version's {p_err:.3e}")
+        if not vs_plain and p_err <= 5e-4 + 1e-4 * float(e.abs().max()):
+            raise RuntimeError(f"{label} {part}: the plain version is within "
+                               f"the vs-plain tolerance; hold the kernel to "
+                               f"it")
+        row["f64_max_abs_err"] = max(row["f64_max_abs_err"], float(err.max()))
+        row["plain_f64_max_abs_err"] = max(row["plain_f64_max_abs_err"],
+                                           p_err)
+        row["f64_bound_used"] = max(row["f64_bound_used"], used)
+    del plain, exact, bnd
+    log(f"[kernels] {label}: max_err vs f32 plain "
+        + ("n/a (the plain version misses f64 by more than the tolerance)"
+           if row["max_abs_err"] is None else f"{row['max_abs_err']:.3e}")
+        + f"; vs f64 {row['f64_max_abs_err']:.3e} (the f32 plain version's "
+        f"{row['plain_f64_max_abs_err']:.3e}; at most "
+        f"{row['f64_bound_used']:.3f} of the derived bound); two launches "
+        f"bit for bit")
+    return row
 
 
 def kernel_mriq(rows: dict) -> None:
     from repro_torch.kernels import mriq as K, ref
-    args = [a.cuda() for a in mriq_data()]
+    args = ref.mriq_inputs(0, 64 ** 3, 3072, device="cuda")
     n, m = args[4].shape[0], args[0].shape[0]
-    got = K.mriq_cuda(*args)
-    want = ref.mriq_ref(*args)
-    atol, rtol = 5e-4, 1e-4     # tests/test_kernels.py, mriq
-    err = max(check("mriq qr", got[0], want[0], atol, rtol),
-              check("mriq qi", got[1], want[1], atol, rtol))
+    row = mriq_truth(f"mriq N={n} M={m}", args)
     bnd = bound(16.0 * n * m, PEAK_F32, (3 * n + 4 * m + 2 * n) * 4)
     rows["mriq"] = {
-        "max_abs_err": err, "tol": f"atol {atol} + rtol {rtol}",
+        **row, "tol": "atol 0.0005 + rtol 0.0001 vs the f32 plain version; "
+        "derived bound (ref.mriq_f32_tolerance) vs the f64 plain version",
+        "design": MRIQ_DESIGN,
         "ms": graph_ms(lambda: K.mriq_cuda(*args), reps=10),
         "plain_ms": cuda_ms(lambda: ref.mriq_ref(*args), reps=3),
         **bnd, "library_ms": None, "library": NO_LIBRARY,
         "shape": f"N={n} M={m} f32"}
+    floor = 2.0 * n * m / SFU_RATE * 1e3
+    log(f"[kernels] mriq: SFU floor {floor:.4f} ms (2 MUFU a pair at 16 "
+        f"lanes/SM/clock x 132 SMs x 1.98 GHz, an assumed clock), kernel at "
+        f"{floor / rows['mriq']['ms']:.4f} of it; design {MRIQ_DESIGN}")
+    del args
+    # ragged: N past a whole block, M past whole groups and strides
+    args = ref.mriq_inputs(1, 64 ** 3 + 3, 3073, device="cuda")
+    rows["mriq"]["ragged"] = mriq_truth("mriq N=262147 M=3073", args)
+    # phases up to 2^12 turns: the turn reduction must still hold
+    args = ref.mriq_inputs(2, 64 ** 3, 3072, t_max=2.0 ** 12, device="cuda")
+    rows["mriq"]["large_phase"] = mriq_truth(
+        "mriq N=262144 M=3072 |t| <= 2^12", args, vs_plain=False)
 
 
 def flash_case(s: int, hq: int, hkv: int, d: int, window: int, seed: int,
@@ -681,7 +762,7 @@ def phase_kernels() -> dict:
             lib = "null" if rr["library_ms"] is None \
                 else f"{rr['library_ms']:.4f}"
             log(f"[kernels] {name} {label} ({rr['shape']}): max_err "
-                f"{rr['max_abs_err']:.3e} tol {rr['tol']} kernel_ms "
+                f"{rr['max_abs_err']:.3e} tol {rr['tol']}; kernel_ms "
                 f"{rr['ms']:.4f} plain_ms {rr['plain_ms']:.4f} library_ms "
                 f"{lib} bound_ms {rr['bound_ms']:.4f} ({rr['bound_by']}; "
                 f"operations at {rr['bound_peak']}); share of bound "
@@ -711,36 +792,67 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 
-def phase_mriq(card: dict) -> dict:
+#: offloaded MRI-Q legs timed; the median is the one billed
+MRIQ_LEGS = 5
+MRIQ_PARTS = ("h2d", "kernel", "d2h", "total")
+
+
+def mriq_leg(host) -> tuple:
+    """One offloaded MRI-Q leg: the inputs to the card (H2D), the kernel,
+    the results back (D2H), with CUDA events between the parts.  Returns
+    the parts' seconds and the results."""
+    from repro_torch.kernels import ops
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    dev = [a.cuda() for a in host]              # H2D
+    ev[1].record()
+    qr, qi = ops.mriq(*dev)                     # kernel
+    ev[2].record()
+    got = (qr.cpu(), qi.cpu())                  # D2H
+    ev[3].record()
+    ev[3].synchronize()
+    parts = [ev[i].elapsed_time(ev[i + 1]) / 1e3 for i in range(3)]
+    return dict(zip(MRIQ_PARTS, parts + [ev[0].elapsed_time(ev[3]) / 1e3])), \
+        got
+
+
+def phase_mriq(card: dict, host, earlier: list) -> dict:
+    """The paper's Fig. 5 legs: the CPU-only leg once, and the offloaded leg
+    MRIQ_LEGS times, ``earlier`` holding the parts of all but the last (run
+    just before the launch counts were set to 0, so the counted path
+    launches the kernel once); each part's median and range, the median
+    total billed."""
     from repro_torch.core.power import R740_ARRIA10
     from repro_torch.kernels import ops
-    host = mriq_data(seed=0)
     t0 = time.perf_counter()
     want = ops.mriq(*host)                      # CPU tensors: plain version
     t_cpu = time.perf_counter() - t0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    dev = [a.cuda() for a in host]              # H2D
-    qr, qi = ops.mriq(*dev)                     # kernel
-    got = (qr.cpu(), qi.cpu())                  # D2H
-    end.record()
-    end.synchronize()
-    t_off = start.elapsed_time(end) / 1e3
+    last, got = mriq_leg(host)
+    legs = earlier + [last]
     err = max(check("mriq offloaded qr", got[0], want[0], 5e-4, 1e-4),
               check("mriq offloaded qi", got[1], want[1], 5e-4, 1e-4))
+    stats = {}
+    for part in MRIQ_PARTS:
+        v = sorted(leg[part] for leg in legs)
+        stats[part] = {"median": v[len(v) // 2], "min": v[0], "max": v[-1]}
+    t_off = stats["total"]["median"]
     node = R740_ARRIA10
-    out = {"cpu_s": t_cpu, "offload_s": t_off,
-           "cpu_ws": t_cpu * node.p_cpu_active,
+    out = {"cpu_s": t_cpu, "offload_s": t_off, "offload_parts": stats,
+           "legs": len(legs), "cpu_ws": t_cpu * node.p_cpu_active,
            "offload_ws": t_off * node.p_accel_active, "max_abs_err": err,
            "threads": torch.get_num_threads()}
     log(f"[mriq] N=262144 M=3072: CPU-only leg {t_cpu:.4f} s "
         f"({out['threads']} host threads) -> {out['cpu_ws']:.3f} Ws at "
-        f"{node.p_cpu_active} W; offloaded leg (H2D+kernel+D2H) "
-        f"{t_off:.6f} s -> {out['offload_ws']:.4f} Ws at "
+        f"{node.p_cpu_active} W; offloaded leg (H2D+kernel+D2H), median of "
+        f"{len(legs)}, {t_off:.6f} s -> {out['offload_ws']:.4f} Ws at "
         f"{node.p_accel_active} W (R740 node points); speedup "
         f"{t_cpu / t_off:.1f}x; max_err {err:.3e}; card {card['smi']}")
+    for part in MRIQ_PARTS:
+        st = stats[part]
+        log(f"[mriq] offloaded leg {part}: median {st['median']:.6f} s, "
+            f"range {st['min']:.6f}-{st['max']:.6f} s over {len(legs)} "
+            f"legs; {st['median'] / t_off:.4f} of the median leg")
     return out
 
 
@@ -925,18 +1037,19 @@ def profile_prefill(model, params, prefill_s: float) -> None:
                    prof, wall_ms, f"unprofiled {prefill_s * 1e3:.3f} ms")
 
 
-def run_path(arch: str, counters: dict, seeds=(0,), card=None) -> dict:
+def run_path(arch: str, counters: dict, seeds=(0,), mriq=None) -> dict:
     """One model's path under the offload plan: its weights on the card,
     prefill + decode against the forward for each of ``seeds`` (the serve
     phase keeps the first), then serving.  The launch counts are set to 0
-    just before and read just after; MRI-Q runs on qwen2-7b's path.
-    Returns the counts, the model and its weights."""
+    just before and read just after; ``mriq`` (the MRI-Q phase, whose
+    last offloaded leg is counted) runs on qwen2-7b's path.  Returns the
+    counts, the model and its weights."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     for k in counters.values():
         k.launches = 0
-    if card is not None:
-        phase_mriq(card)
+    if mriq is not None:
+        mriq()
     cfg = get_config(arch)
     model = Model(cfg, cfg.plan.replace(**OFFLOAD))
     torch.cuda.reset_peak_memory_stats()
@@ -968,8 +1081,8 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
     try:
-        from repro_torch.kernels import (flash_attention, mriq, rglru, ssd,
-                                         swiglu)
+        from repro_torch.kernels import (flash_attention, mriq, ref, rglru,
+                                         ssd, swiglu)
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing ({e})",
               file=sys.stderr)
@@ -983,10 +1096,15 @@ def main() -> int:
                 "swiglu": swiglu.KERNEL, "ssd": ssd.KERNEL,
                 "rglru": rglru.KERNEL}
     launches = dict.fromkeys(counters, 0)
+    host = ref.mriq_inputs(0, 64 ** 3, 3072)
+    earlier = [mriq_leg(host)[0] for _ in range(MRIQ_LEGS - 1)]
+
+    def mriq():
+        phase_mriq(card, host, earlier)
     for arch in PATH_KERNELS:           # one model's weights at a time
         path = run_path(arch, counters,
                         seeds=PREFILL_SEEDS if arch == "qwen2-7b" else (0,),
-                        card=card if arch == "qwen2-7b" else None)
+                        mriq=mriq if arch == "qwen2-7b" else None)
         for name, n in path["launches"].items():
             launches[name] += n
         if arch == "qwen2-7b":          # outside the counted path

@@ -1,8 +1,10 @@
 """MRI-Q on the H100: binding of ``csrc/mriq.cu``.
 
 Counterpart of ``repro.kernels.mriq`` (the Pallas TPU kernel
-``mriq_pallas``).  One thread per voxel, k-space chunks staged in shared
-memory, accurate ``sincosf``; see the source for its bound and design.
+``mriq_pallas``).  The phase in turns, reduced exactly; sin and cos on the
+SFU; four voxels a thread against k-space staged in shared memory; see the
+source for its bound and design, and ``ref.mriq_f32_tolerance`` for its
+error bound.
 """
 from __future__ import annotations
 

@@ -1,8 +1,14 @@
 """The port's CUDA kernels against their plain versions, on the card.
 
 f32 results keep the tolerances of tests/test_kernels.py (the f32 kernels
-compute on the CUDA cores and round nowhere).  bf16 results are held
-against the plain version run in f32 on the same bf16 inputs:
+compute on the CUDA cores and round nowhere).  mriq, whose sines and
+cosines of the phase reduced in turns come from the SFU, is also held
+against the plain version in f64: elementwise within
+``ref.mriq_f32_tolerance`` (derived from its arithmetic), with a max error
+at most twice the f32 plain version's.  With phases up to 2^12 turns it
+is held against f64 alone: there the f32 plain version is itself off by
+more than the f32 tolerance.  bf16 results are held against the plain
+version run in f32 on the same bf16 inputs:
 
 * ssd runs its chunk products on the tensor cores and rounds B' (the rows
   of B weighted by dt_j exp(cum_L - cum_j)), the carried state S and the
@@ -28,9 +34,9 @@ against the plain version run in f32 on the same bf16 inputs:
   ``swiglu_ref(round_a=True)``, is no tight mirror at full width: the two
   f32 computations of a round to neighbouring bf16 values here and
   there, and at T=1024, f=18944 those steps add up past 1e-5.)
-* The bf16 swiglu adds its split sums in a fixed order, and ssd and rglru
-  have one writer per output and sums in a fixed order: two launches agree
-  bit for bit.
+* The bf16 swiglu adds its split sums in a fixed order, and mriq, ssd and
+  rglru have one writer per output and sums in a fixed order: two launches
+  agree bit for bit.
 
 jax-free.  Every test takes the ``cuda`` fixture, which skips (with the
 reason) when no CUDA device is visible; on the H100 run them with
@@ -136,6 +142,46 @@ def test_mriq_kernel(cuda, n, m):
     qr0, qi0 = ref.mriq_ref(*k, phi, *x)
     torch.testing.assert_close(qr, qr0, atol=5e-4, rtol=1e-4)
     torch.testing.assert_close(qi, qi0, atol=5e-4, rtol=1e-4)
+
+
+def _mriq_checks(args, vs_plain=True):
+    """The kernel within atol 5e-4 + rtol 1e-4 of the f32 plain version
+    (``vs_plain``); within ``ref.mriq_f32_tolerance`` of the f64 plain
+    version elementwise, with a max error at most twice the f32 plain
+    version's; two launches equal bit for bit.  Without ``vs_plain`` the
+    f32 plain version must itself miss f64 by more than that tolerance
+    (large phases, where it rounds 2 pi t of thousands of turns)."""
+    got = MQ.mriq_cuda(*args)
+    again = MQ.mriq_cuda(*args)
+    plain = ref.mriq_ref(*args)
+    exact = ref.mriq_ref(*[a.double() for a in args])
+    bnd = ref.mriq_f32_tolerance(*args)
+    for g, a, p, e in zip(got, again, plain, exact):
+        assert torch.equal(g, a)
+        if vs_plain:
+            torch.testing.assert_close(g, p, atol=5e-4, rtol=1e-4)
+        err = (g.double() - e).abs()
+        assert float((err - bnd).max()) <= 0, float(err.max())
+        p_err = float((p.double() - e).abs().max())
+        assert float(err.max()) <= 2 * p_err, (float(err.max()), p_err)
+        if not vs_plain:
+            assert p_err > 5e-4 + 1e-4 * float(e.abs().max())
+
+
+@pytest.mark.parametrize("n,m", [(4099, 97), (4099, 3073), (1000, 1),
+                                 (262147, 3072), (262144, 3072)])
+def test_mriq_kernel_ragged_and_against_f64(cuda, n, m):
+    """M not a multiple of the stage, the group or the inner loop's step;
+    N not a multiple of a block's voxels; and the paper's size."""
+    _mriq_checks(ref.mriq_inputs(n + m, n, m, device="cuda"))
+
+
+@pytest.mark.parametrize("n,m", [(4099, 3072), (1000, 97)])
+def test_mriq_kernel_large_phase(cuda, n, m):
+    """Coordinates scaled until |t| reaches 2^12 turns: the turn reduction
+    still holds the kernel to the f64 plain version at its derived bound."""
+    _mriq_checks(ref.mriq_inputs(m, n, m, 2.0 ** 12, device="cuda"),
+                 vs_plain=False)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

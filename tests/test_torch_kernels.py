@@ -7,6 +7,11 @@ tests/test_kernels.py's: mriq atol 5e-4 rtol 1e-4; flash 2e-5 (f32) and
 sizes.  On CPU tensors the public wrappers run the plain versions and
 never launch (or build) a kernel.
 """
+import inspect
+import math
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -73,6 +78,178 @@ def test_mriq_rows_are_independent_of_the_chunking():
     tail = ref.mriq_ref(*k, *[a[-37:] for a in x])
     torch.testing.assert_close(qr[-37:], tail[0], rtol=0, atol=0)
     torch.testing.assert_close(qi[-37:], tail[1], rtol=0, atol=0)
+
+
+MRIQ_CU = Path(MQ.__file__).parent / "csrc" / "mriq.cu"
+
+
+def _cu_constants():
+    """The float and int constants of ``csrc/mriq.cu``, by name, as
+    written there (``constexpr float NAME = literal;``)."""
+    src = MRIQ_CU.read_text()
+    out = {}
+    for name, lit in re.findall(
+            r"constexpr (?:float|int) (\w+) = ([-0-9a-fA-Fx.p+*]+?)f?;", src):
+        if "*" in lit:
+            continue
+        out[name] = float.fromhex(lit) if "x" in lit else float(lit)
+    return out
+
+
+def _reduce_turns(t):
+    """t - rint(t) in f32, as the kernel takes it (magic constant)."""
+    n = (t + ref.RINT_MAGIC) - ref.RINT_MAGIC
+    return t - n
+
+
+def mriq_turns(kx, ky, kz, phi, x, y, z, poly_every=0, voxels=4,
+               threads=256, group=96):
+    """The MRI-Q kernel's arithmetic in plain PyTorch, f32: t = fmaf(x, kx,
+    fmaf(y, ky, z kz)), r = t - rint(t), sin and cos of 2 pi r by
+    ``ref.sincos_turns`` for the pairs the kernel sends to its FP32 pipe
+    (voxel i sits in slot v = (i // threads) % voxels of its thread, and
+    pair (m, i) goes there when (m voxels + v) % poly_every == poly_every -
+    1) and, for the rest (the card's SFU), f64 sin and cos rounded to f32;
+    each voxel's pairs added by fmaf in groups of ``group`` k points, the
+    groups into a Kahan sum, in k order.  ``poly_every`` 0: every pair on
+    the SFU stand-in."""
+    f = ref._fma32
+    t = f(x[:, None], kx[None, :],
+          f(y[:, None], ky[None, :], z[:, None] * kz[None, :]))
+    r = _reduce_turns(t)
+    s_p, c_p = ref.sincos_turns(r)
+    ang = 2 * math.pi * r.double()
+    s, c = torch.sin(ang).float(), torch.cos(ang).float()
+    if poly_every:
+        slot = (torch.arange(x.shape[0]) // threads) % voxels
+        on = (torch.arange(kx.shape[0])[None, :] * voxels
+              + slot[:, None]) % poly_every == poly_every - 1
+        s, c = torch.where(on, s_p, s), torch.where(on, c_p, c)
+    out = []
+    for trig in (c, s):
+        tot = torch.zeros_like(x)
+        comp = torch.zeros_like(x)
+        for g0 in range(0, kx.shape[0], group):
+            acc = torch.zeros_like(x)
+            for j in range(g0, min(g0 + group, kx.shape[0])):
+                acc = f(phi[j].expand_as(acc), trig[:, j], acc)
+            yv = acc - comp
+            tt = tot + yv
+            comp = (tt - tot) - yv
+            tot = tt
+        out.append(tot)
+    return out[0], out[1]
+
+
+def test_mriq_cu_constants_match_the_mirror():
+    """The polynomial's coefficients, the group and the magic constant in
+    ``csrc/mriq.cu`` are the mirror's (read from the source, so the two
+    cannot drift)."""
+    cu = _cu_constants()
+    names = ("SIN1", "SIN3", "SIN5", "SIN7")
+    assert [cu[k] for k in names] == list(ref.SINCOS_TURNS_SIN)
+    assert [1.0] + [cu[k] for k in ("COS2", "COS4", "COS6")] == \
+        list(ref.SINCOS_TURNS_COS)
+    assert all(np.float32(c) == c for c in ref.SINCOS_TURNS_SIN
+               + ref.SINCOS_TURNS_COS)
+    assert cu["GROUP"] == ref.MRIQ_GROUP
+    assert cu["RINT_MAGIC"] == ref.RINT_MAGIC == 1.5 * 2 ** 23
+    assert cu["POLY_EVERY"] == 0 or ref.MRIQ_GROUP % cu["POLY_EVERY"] == 0
+    defaults = inspect.signature(mriq_turns).parameters
+    for name, key in (("poly_every", "POLY_EVERY"), ("voxels", "V"),
+                      ("threads", "THREADS"), ("group", "GROUP")):
+        assert defaults[name].default == cu[key]
+
+
+def test_sincos_turns_within_its_stated_error():
+    """The FP32-pipe path against f64 sin and cos of 2 pi r on a dense
+    grid of |r| <= 1/2 (every quadrant edge included)."""
+    grid = np.linspace(-0.5, 0.5, 1_000_001).astype(np.float32)
+    edges = np.array([k / 8 for k in range(-4, 5)], np.float32)
+    r = torch.from_numpy(np.concatenate([
+        grid, edges, np.nextafter(edges, np.float32(1)),
+        np.nextafter(edges, np.float32(-1))]).clip(-0.5, 0.5))
+    s, c = ref.sincos_turns(r)
+    ang = 2 * math.pi * r.double()
+    err = max(float((s.double() - torch.sin(ang)).abs().max()),
+              float((c.double() - torch.cos(ang)).abs().max()))
+    assert err <= ref.SINCOS_TURNS_MAX_ERR
+    assert err > ref.SINCOS_TURNS_MAX_ERR / 2      # the stated error is tight
+    assert ref.SINCOS_TURNS_MAX_ERR < ref.SFU_SINCOS_ERR
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e3, 2.0 ** 21])
+def test_turn_reduction_is_exact(scale):
+    """r = t - rint(t) lies in [-1/2, 1/2] and t - r is an integer, exactly,
+    for |t| up to 2^22."""
+    t = _t(np.random.default_rng(3).uniform(-scale, scale, 100_000)
+           .astype(np.float32))
+    r = _reduce_turns(t)
+    n = t.double() - r.double()
+    assert bool((r.abs() <= 0.5).all())
+    assert bool((n == torch.round(n)).all())
+    assert bool((r.double() + n == t.double()).all())
+
+
+@pytest.mark.parametrize("poly_every", [12, 1, 0])
+@pytest.mark.parametrize("n,m,bn,bm", [(64, 32, 16, 8), (128, 64, 64, 64),
+                                       (256, 96, 32, 32)])
+def test_mriq_turns_matches_pallas_and_oracle(n, m, bn, bm, poly_every):
+    """The kernel's turn-reduced arithmetic (polynomial on every 12th pair,
+    on every pair, on none; voxel slots of 16 so that both occur)
+    against the Pallas kernel (interpret mode) and the jnp oracle at
+    tests/test_kernels.py's tolerance."""
+    rng = np.random.default_rng(n)
+    kx, ky, kz = (_np(rng, (m,)) for _ in range(3))
+    phi = rng.random(m, dtype=np.float32)
+    x, y, z = (_np(rng, (n,)) for _ in range(3))
+    args = (kx, ky, kz, phi, x, y, z)
+    qr, qi = mriq_turns(*map(_t, args), poly_every=poly_every, threads=16)
+    jargs = [jnp.asarray(a) for a in args]
+    for want in (mriq_pallas(*jargs, block_n=bn, block_m=bm),
+                 jref.mriq_ref(*jargs)):
+        _close(qr, want[0], (5e-4, 1e-4))
+        _close(qi, want[1], (5e-4, 1e-4))
+
+
+@pytest.mark.parametrize("poly_every", [0, 12])
+@pytest.mark.parametrize("n,m,t_max", [(64, 97, None), (200, 3073, None),
+                                       (64, 300, 2.0 ** 12)])
+def test_mriq_turns_within_the_derived_bound_of_f64(n, m, t_max, poly_every):
+    """The kernel's arithmetic (SFU pairs stood in by f64 sin/cos rounded
+    to f32; no pair or one in 12 on the polynomial) within ``ref.mriq_f32_tolerance`` of the f64 plain version
+    elementwise, and no further from it than the f32 plain version is;
+    M not a multiple of the group or of the polynomial's stride, and
+    coordinates scaled until |t| reaches 2^12 turns, where the f32 plain
+    version is off by more than the vs-plain tolerance."""
+    args = ref.mriq_inputs(m, n, m, t_max)
+    got = mriq_turns(*args, poly_every=poly_every, threads=16)
+    exact = ref.mriq_ref(*[a.double() for a in args])
+    plain = ref.mriq_ref(*args)
+    bnd = ref.mriq_f32_tolerance(*args)
+    for g, p, e in zip(got, plain, exact):
+        err = (g.double() - e).abs()
+        assert bool((err <= bnd).all())
+        p_err = float((p.double() - e).abs().max())
+        assert float(err.max()) <= 2 * p_err
+        if t_max is not None:
+            assert p_err > 5e-4 + 1e-4 * float(e.abs().max())
+
+
+def test_mriq_f32_tolerance_is_what_the_docstring_says():
+    kx, ky, kz, phi, x, y, z = ref.mriq_inputs(5, 16, 100)
+    u, p = 2.0 ** -24, phi.double().abs()
+    d = [a.double() for a in (kx, ky, kz, x, y, z)]
+    phase = 2 * math.pi * u * (1 + u) ** 2 * (
+        p * (torch.outer(d[3], d[0]).abs() + 2 * torch.outer(d[4], d[1]).abs()
+             + 3 * torch.outer(d[5], d[2]).abs())).sum(1)
+    G = ref.MRIQ_GROUP
+    n_groups, g = -(-100 // G), G * u / (1 - G * u)
+    e = ref.SFU_SINCOS_ERR
+    sums = (g + (2 * u + 4 * n_groups * u * u) * (1 + g)) * (1 + e)
+    want = phase + (e + sums + 2.0 ** -40) * float(p.sum())
+    torch.testing.assert_close(ref.mriq_f32_tolerance(kx, ky, kz, phi, x, y,
+                                                      z), want)
 
 
 # ---------------------------------------------------------------------------
