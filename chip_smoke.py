@@ -39,17 +39,23 @@ a non-zero exit and no result line:
               switch; plus reduced qwen2-7b, mamba2-1.3b and
               recurrentgemma-9b on the card (kernels, f32) against the
               plain path on the CPU;
-  4. MRI-Q    the paper's Fig. 5 at its size (64^3 voxels, 3072 k-space
-              points): the plain version on the host CPU against the
-              offloaded leg (H2D + kernel + D2H, CUDA events between the
-              parts), run 5 times (the first 4 just before the launch
-              counts are set to 0): each part's median and range, each
-              leg's Watt*seconds (the offloaded leg's median) at the
-              paper's measured R740 node points;
+  4. calibrate the card's idle draw and two kernel windows (swiglu T=1024,
+              rglru S 2560) under the NVML sampler, and the energy
+              constants solved from them beside the ones ``core.power.H100``
+              commits (``repro_torch.benchmarks.calibrate_power``);
   5. models   for each of qwen2-7b, mamba2-1.3b and recurrentgemma-9b at
               full width under the offload plan (every site on the
               kernels), random weights from seeded generators on the card,
               one model at a time:
+              Fig. 5   (qwen2-7b's path) the paper's MRI-Q A/B at its size
+                       (64^3 voxels, 3072 k-space points) through
+                       ``repro_torch.benchmarks.bench_mriq``: the card's name,
+                       power limit and energy counter period, its idle
+                       draw, the CPU-only leg, the offloaded leg from pinned
+                       buffers (H2D + kernel + D2H, each part's median and
+                       range over 5 legs), the Fig. 5 rows at the paper's
+                       R740 node points and the offloaded leg at the card's
+                       measured draw (card-only);
               prefill  2 x 512 tokens (2 x 2560 for recurrentgemma-9b, past
                        its 2048 window), then 8 decode steps, held against
                        the teacher-forced forward (qwen2-7b for three weight
@@ -58,17 +64,28 @@ a non-zero exit and no result line:
               serve    ``ServeLoop`` (8 slots, max_seq 256) billing a
                        ``DecodeEnergyMeter`` at the accelerated R740 node
                        point: 8 requests, 16 new tokens each;
-              counts   the kernels' launch counts over that model's path
-                       (MRI-Q belongs to qwen2-7b's), each kernel of the
-                       path > 0;
+              offload  (qwen2-7b's path, on its loaded weights) the paper's
+                       offload search, ``core.adapt`` at prefill_32k_b1:
+                       GA and narrowing on the analytic rung, the finalists
+                       and the chosen plan's smoke trial measured on the
+                       card (wall clock, NVML energy); each finalist's
+                       seconds, W, Ws and fitness or its penalty, the chosen
+                       plan; fails unless a finalist is confirmed on the
+                       measured rung and the chosen plan's trial launched
+                       the kernels its genes name;
+              counts   the kernels' launch counts over that model's path,
+                       each kernel of the path > 0;
   6. profile  qwen2-7b's 8 requests served again, and one bf16 prefill of
               mamba2-1.3b, under torch.profiler: kernels by device time,
               the CUDA runtime calls by host time, and the device's busy
               share of each window.
 
-It takes about 3 minutes on the H100, the kernels' build (~7 s) included.  It
-exits non-zero when no CUDA device is visible, and when the port's package
-is not beside it.  The last line is
+Every window sampled from the card's NVML energy counter must agree with
+the counter's own difference over it within 5 %.  Kernel phase 3 also times
+flash_attention and swiglu at qwen2-7b's 32k-token prefill, beside their
+bounds (their plain versions are held at the shapes above).  It exits
+non-zero when no CUDA device is visible, and when the port's package is
+not beside it.  The last line is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 """
 from __future__ import annotations
@@ -714,6 +731,89 @@ def rglru_case(s: int) -> dict:
             "shape": f"B={b} S={s} W={w} f32"}
 
 
+#: qwen2-7b's prefill_32k_b1: one sequence of 32768 tokens
+PREFILL_32K = 32768
+
+
+def rows_32k(n: int) -> torch.Tensor:
+    """The rows of a 32k-token output held against the plain version (which
+    is not run in full there): the first 64, the 128 across the middle and
+    the last 256, whose queries see every key."""
+    return torch.cat([torch.arange(0, 64),
+                      torch.arange(n // 2 - 64, n // 2 + 64),
+                      torch.arange(n - 256, n)]).cuda()
+
+
+def flash_32k() -> dict:
+    """flash_attention at qwen2-7b's 32k-token prefill (B1 S=T=32768 Hq28
+    Hkv4 D128 bf16 causal), timed beside its bound and SDPA; the rows of
+    ``rows_32k`` held against the plain version in f32 over all 32768 keys
+    and against SDPA's error there, as ``flash_case`` holds the full
+    output."""
+    from repro_torch.kernels import flash_attention as K, ref
+    s, hq, hkv, d = PREFILL_32K, 28, 4, 128
+    g = torch.Generator(device="cuda").manual_seed(11)
+    q, k, v = (torch.randn((1, s, h, d), generator=g, device="cuda")
+               .to(torch.bfloat16) for h in (hq, hkv, hkv))
+    o = K.flash_attention_cuda(q, k, v, True, 0)
+    idx = rows_32k(s)
+    want = ref.attention_naive(q[:, idx].float(), k.float(), v.float(), idx,
+                               torch.arange(s, device="cuda"), True, 0)
+    err = check(f"flash_attention S={s} rows", o[:, idx], want,
+                ROUND * float(v.float().abs().max()) + BF16_TOL[0],
+                BF16_TOL[1])
+    del o
+    qt = q.transpose(1, 2).contiguous()
+    kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+    vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
+    sdpa_err = max_err(F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True)[:, :, idx].transpose(1, 2), want)
+    del want
+    check_library(f"flash_attention S={s} rows", err, sdpa_err)
+    pairs = s * (s + 1) // 2
+    return {"rows_max_abs_err": err, "rows": len(idx),
+            "library_max_abs_err": sdpa_err, "tol": FLASH_TOL_TEXT,
+            "ms": cuda_ms(lambda: K.flash_attention_cuda(q, k, v, True, 0),
+                          3, warmup=1),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=True), 3, warmup=1),
+            **bound(4.0 * hq * d * pairs, PEAK_BF16,
+                    (2 * q.numel() + k.numel() + v.numel()) * 2),
+            "shape": f"B=1 S=T={s} Hq={hq} Hkv={hkv} D={d} bf16 causal"}
+
+
+def swiglu_32k() -> dict:
+    """swiglu at qwen2-7b's 32k-token prefill (T 32768, d 3584, f 18944,
+    bf16: the wgmma prefill design), timed beside its bound and the cuBLAS
+    chain; the rows of ``rows_32k`` held against the plain version in f32
+    and against the chain's error there, as ``swiglu_case`` holds y."""
+    from repro_torch.kernels import swiglu as K
+    wi, wg, wo, g = qwen_mlp(12)
+    d, f = wi.shape
+    t = PREFILL_32K
+    x = torch.randn((t, d), generator=g, device="cuda").to(torch.bfloat16)
+    y = K.swiglu_cuda(x, wi, wg, wo)
+    idx = rows_32k(t)
+    xr = x[idx]
+    wo32 = wo.float()
+    a = F.silu(xr.float() @ wg.float()) * (xr.float() @ wi.float())
+    want = a @ wo32
+    err = check(f"swiglu T={t} rows", y[idx], want,
+                ROUND * (a.abs() @ wo32.abs()) + BF16_TOL[0], BF16_TOL[1])
+    del y, a, wo32
+    lib_err = max_err((F.silu(xr @ wg) * (xr @ wi)) @ wo, want)
+    check_library(f"swiglu T={t} rows", err, lib_err)
+    return {"rows_max_abs_err": err, "rows": len(idx),
+            "library_max_abs_err": lib_err, "tol": SWIGLU_TOL_TEXT,
+            "ms": cuda_ms(lambda: K.swiglu_cuda(x, wi, wg, wo), 3,
+                          warmup=1),
+            "library_ms": cuda_ms(
+                lambda: (F.silu(x @ wg) * (x @ wi)) @ wo, 3, warmup=1),
+            **bound(6.0 * t * d * f, PEAK_BF16, (3 * d * f + 2 * t * d) * 2),
+            "design": K.plan(t, d, f, x.dtype)["design"],
+            "shape": f"T={t} d={d} f={f} bf16"}
+
+
 def kernel_rglru(rows: dict) -> None:
     rows["rglru"] = rglru_case(2560)
     rows["rglru"]["forward"] = rglru_case(2568)
@@ -753,6 +853,17 @@ def phase_kernels() -> dict:
     rows["swiglu"]["designs_ms"] = swiglu_designs()
     kernel_ssd(rows)
     kernel_rglru(rows)
+    rows["flash_attention"]["prefill_32k"] = flash_32k()
+    rows["swiglu"]["prefill_32k"] = swiglu_32k()
+    for name in ("flash_attention", "swiglu"):
+        rr = rows[name]["prefill_32k"]
+        log(f"[kernels] {name} prefill_32k ({rr['shape']}): kernel_ms "
+            f"{rr['ms']:.4f} library_ms {rr['library_ms']:.4f} bound_ms "
+            f"{rr['bound_ms']:.4f} ({rr['bound_by']}; operations at "
+            f"{rr['bound_peak']}); share of bound "
+            f"{rr['bound_ms'] / rr['ms']:.4f}; {rr['rows']} rows vs the "
+            f"plain version: max_err {rr['rows_max_abs_err']:.3e} tol "
+            f"{rr['tol']}, library's {rr['library_max_abs_err']:.3e}")
     for name, r in rows.items():
         for label in ("", "prefill", "local", "forward", "f32",
                       "f32_forward"):
@@ -792,67 +903,29 @@ def phase_kernels() -> dict:
 # ---------------------------------------------------------------------------
 
 
-#: offloaded MRI-Q legs timed; the median is the one billed
-MRIQ_LEGS = 5
-MRIQ_PARTS = ("h2d", "kernel", "d2h", "total")
+def phase_calibrate(source) -> dict:
+    """The H100 spec's energy constants measured again, beside the
+    committed ones."""
+    from repro_torch.benchmarks.calibrate_power import CONSTANTS, calibrate
+    from repro_torch.core.power import H100
+    from repro_torch.telemetry.nvml import check_window
+    out = calibrate(source, log=log)
+    check_window("calibrate idle", out["idle_counter"])
+    for w in out["windows"]:
+        check_window(f"calibrate {w['name']}", w["counter"])
+    log("[calibrate] committed in core.power.H100 / this run: " + ", ".join(
+        f"{k} {getattr(H100, k):.6g} / {out[k]:.6g}" for k in CONSTANTS))
+    return out
 
 
-def mriq_leg(host) -> tuple:
-    """One offloaded MRI-Q leg: the inputs to the card (H2D), the kernel,
-    the results back (D2H), with CUDA events between the parts.  Returns
-    the parts' seconds and the results."""
-    from repro_torch.kernels import ops
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    torch.cuda.synchronize()
-    ev[0].record()
-    dev = [a.cuda() for a in host]              # H2D
-    ev[1].record()
-    qr, qi = ops.mriq(*dev)                     # kernel
-    ev[2].record()
-    got = (qr.cpu(), qi.cpu())                  # D2H
-    ev[3].record()
-    ev[3].synchronize()
-    parts = [ev[i].elapsed_time(ev[i + 1]) / 1e3 for i in range(3)]
-    return dict(zip(MRIQ_PARTS, parts + [ev[0].elapsed_time(ev[3]) / 1e3])), \
-        got
-
-
-def phase_mriq(card: dict, host, earlier: list) -> dict:
-    """The paper's Fig. 5 legs: the CPU-only leg once, and the offloaded leg
-    MRIQ_LEGS times, ``earlier`` holding the parts of all but the last (run
-    just before the launch counts were set to 0, so the counted path
-    launches the kernel once); each part's median and range, the median
-    total billed."""
-    from repro_torch.core.power import R740_ARRIA10
-    from repro_torch.kernels import ops
-    t0 = time.perf_counter()
-    want = ops.mriq(*host)                      # CPU tensors: plain version
-    t_cpu = time.perf_counter() - t0
-    last, got = mriq_leg(host)
-    legs = earlier + [last]
-    err = max(check("mriq offloaded qr", got[0], want[0], 5e-4, 1e-4),
-              check("mriq offloaded qi", got[1], want[1], 5e-4, 1e-4))
-    stats = {}
-    for part in MRIQ_PARTS:
-        v = sorted(leg[part] for leg in legs)
-        stats[part] = {"median": v[len(v) // 2], "min": v[0], "max": v[-1]}
-    t_off = stats["total"]["median"]
-    node = R740_ARRIA10
-    out = {"cpu_s": t_cpu, "offload_s": t_off, "offload_parts": stats,
-           "legs": len(legs), "cpu_ws": t_cpu * node.p_cpu_active,
-           "offload_ws": t_off * node.p_accel_active, "max_abs_err": err,
-           "threads": torch.get_num_threads()}
-    log(f"[mriq] N=262144 M=3072: CPU-only leg {t_cpu:.4f} s "
-        f"({out['threads']} host threads) -> {out['cpu_ws']:.3f} Ws at "
-        f"{node.p_cpu_active} W; offloaded leg (H2D+kernel+D2H), median of "
-        f"{len(legs)}, {t_off:.6f} s -> {out['offload_ws']:.4f} Ws at "
-        f"{node.p_accel_active} W (R740 node points); speedup "
-        f"{t_cpu / t_off:.1f}x; max_err {err:.3e}; card {card['smi']}")
-    for part in MRIQ_PARTS:
-        st = stats[part]
-        log(f"[mriq] offloaded leg {part}: median {st['median']:.6f} s, "
-            f"range {st['min']:.6f}-{st['max']:.6f} s over {len(legs)} "
-            f"legs; {st['median'] / t_off:.4f} of the median leg")
+def phase_fig5(source) -> dict:
+    """The paper's Fig. 5 through the port's harness (bench_mriq), on the
+    card's power source."""
+    from repro_torch.benchmarks import bench_mriq
+    from repro_torch.telemetry.nvml import check_window
+    out = bench_mriq.run(source=source, log=log)
+    check_window("fig5 idle window", out["idle_counter"])
+    check_window("fig5 card-draw window", out["card_counter"])
     return out
 
 
@@ -1037,19 +1110,116 @@ def profile_prefill(model, params, prefill_s: float) -> None:
                    prof, wall_ms, f"unprofiled {prefill_s * 1e3:.3f} ms")
 
 
-def run_path(arch: str, counters: dict, seeds=(0,), mriq=None) -> dict:
+#: the offload search's requirement: a 32k-token prefill in 0.5 s.  The
+#: estimate of no plan meets it on one H100 (2.48 s), so the search runs
+#: all three stages (paper section 3.3 stops at the first stage whose
+#: pattern meets the requirement) and promotes its finalists to the card
+OFFLOAD_SLO_S = 0.5
+OFFLOAD_SHAPE = "prefill_32k_b1"
+
+
+class Recorded:
+    """A measurement rung whose trials are kept, by plan, for the report."""
+
+    def __init__(self, backend):
+        self.backend = backend
+        self.name = backend.name
+        self.trials: list = []
+
+    def measure(self, ctx, plan):
+        m = self.backend.measure(ctx, plan)
+        self.trials.append((plan, m))
+        return m
+
+
+def phase_offload(model, params, source) -> dict:
+    """The paper's offload search for qwen2-7b at prefill_32k_b1 on the
+    card: finalists and the smoke trial on the measured rung, on the
+    loaded weights."""
+    from repro_torch.core.adapt import adapt
+    from repro_torch.core.backends import (MeasuredBackend, plan_kernels,
+                                           plan_tag)
+    from repro_torch.core.destinations import Requirement
+    from repro_torch.core.verifier import RungPolicy
+    from repro_torch.telemetry.nvml import check_window
+    cfg = model.cfg
+    t0 = time.perf_counter()
+    rung = Recorded(MeasuredBackend(source=source, params={cfg.name: params},
+                                    log=log))
+    rep = adapt(cfg, OFFLOAD_SHAPE,
+                requirement=Requirement(max_seconds=OFFLOAD_SLO_S),
+                rungs=RungPolicy(search="analytic", finalist="measured",
+                                 smoke="measured"),
+                verify=True, backends={"measured": rung},
+                log=lambda m: log(f"[offload] {m}"))
+    for plan, m in rung.trials:
+        what = f"[offload] trial plan {plan_tag(plan)} ({plan.attn_impl} " \
+               f"attention, chunk {plan.attn_chunk}, {plan.mlp_impl} mlp, " \
+               f"{plan.kv_cache_dtype} cache)"
+        if not m.ok:
+            log(f"{what}: PENALTY {m.error}")
+            continue
+        check_window(what, m.trace.meta["counter"])
+        log(f"{what}: {m.seconds:.4f} s, {m.watts:.2f} W, {m.energy_j:.3f} Ws "
+            f"a prefill (card-only), fitness {m.fitness():.6f}, peak "
+            f"{m.peak_mem_per_chip / 1e9:.2f} GB")
+    fin = [st for st in rep.selection.stages
+           if st["stage"].startswith("finalist")]
+    if not fin or not fin[0]["confirmed"]:
+        raise RuntimeError(f"offload: no finalist confirmed on the measured "
+                           f"rung ({fin})")
+    smoke = rep.verified
+    if smoke is None or smoke["status"] != "OK":
+        raise RuntimeError(f"offload: the chosen plan's smoke trial failed "
+                           f"({smoke})")
+    want = plan_kernels(rep.plan, rep.genes)
+    missing = [k for k in want if not smoke["launches"].get(k)]
+    if missing:
+        raise RuntimeError(f"offload: the chosen plan's trial launched no "
+                           f"{missing} ({smoke['launches']})")
+    # every plan tried computes the same function: each one's last logits
+    # against the chosen plan's, held as a prefill is against the forward
+    outputs = rung.backend.outputs
+    mine = outputs[plan_tag(rep.plan)]
+    tol = PREFILL_TOL[cfg.name] * float(mine.abs().max())
+    agree = {tag: check(f"offload: plan {tag}'s last logits vs the chosen "
+                        f"plan's", logits, mine, tol, 0.0)
+             for tag, logits in outputs.items() if tag != plan_tag(rep.plan)}
+    log(f"[offload] last logits of each plan tried vs the chosen plan's: "
+        f"max_err {agree} tol {tol:.4f} = {PREFILL_TOL[cfg.name]} "
+        f"max|logit|")
+    chosen = rep.selection.chosen
+    out = {"stage": chosen.name, "plan": chosen.genome.describe(),
+           "kernels": want, "smoke": smoke, "logits_max_abs_err": agree,
+           "seconds_total": time.perf_counter() - t0,
+           "trials": [{"plan": plan_tag(p), "attn_impl": p.attn_impl,
+                       "attn_chunk": p.attn_chunk, "mlp_impl": p.mlp_impl,
+                       "kv_cache_dtype": p.kv_cache_dtype, "ok": m.ok,
+                       "error": m.error, "seconds": m.seconds,
+                       "watts": m.watts, "ws": m.energy_j,
+                       "fitness": m.fitness()} for p, m in rung.trials]}
+    log(f"[offload] chosen {chosen.name}: {out['plan']}; smoke trial "
+        f"{smoke['seconds']:.4f} s, {smoke['watts']:.2f} W, "
+        f"{smoke['energy_ws']:.3f} Ws, launches {smoke['launches']} (its "
+        f"genes name {want}); search {out['seconds_total']:.1f} s")
+    log("offload " + json.dumps(out))
+    return out
+
+
+def run_path(arch: str, counters: dict, seeds=(0,), before=None,
+             after=None) -> dict:
     """One model's path under the offload plan: its weights on the card,
     prefill + decode against the forward for each of ``seeds`` (the serve
     phase keeps the first), then serving.  The launch counts are set to 0
-    just before and read just after; ``mriq`` (the MRI-Q phase, whose
-    last offloaded leg is counted) runs on qwen2-7b's path.  Returns the
-    counts, the model and its weights."""
+    just before and read just after; ``before()`` (the Fig. 5 phase) runs
+    first and ``after(model, params)`` (the offload search) last on the
+    path, both counted.  Returns the counts, the model and its weights."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     for k in counters.values():
         k.launches = 0
-    if mriq is not None:
-        mriq()
+    if before is not None:
+        before()
     cfg = get_config(arch)
     model = Model(cfg, cfg.plan.replace(**OFFLOAD))
     torch.cuda.reset_peak_memory_stats()
@@ -1066,6 +1236,8 @@ def run_path(arch: str, counters: dict, seeds=(0,), mriq=None) -> dict:
     log(f"[prefill] {arch} peak device memory "
         f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
     wall_s = phase_serve(model, params)
+    if after is not None:
+        after(model, params)
     launches = {name: k.launches for name, k in counters.items()}
     log(f"kernels {arch} " + json.dumps(launches))
     missing = [k for k in PATH_KERNELS[arch] if not launches[k]]
@@ -1081,8 +1253,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 1
     try:
-        from repro_torch.kernels import (flash_attention, mriq, ref, rglru,
-                                         ssd, swiglu)
+        from repro_torch.kernels import (flash_attention, mriq, rglru, ssd,
+                                         swiglu)
+        from repro_torch.telemetry.nvml import NvmlSource
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing ({e})",
               file=sys.stderr)
@@ -1096,15 +1269,18 @@ def main() -> int:
                 "swiglu": swiglu.KERNEL, "ssd": ssd.KERNEL,
                 "rglru": rglru.KERNEL}
     launches = dict.fromkeys(counters, 0)
-    host = ref.mriq_inputs(0, 64 ** 3, 3072)
-    earlier = [mriq_leg(host)[0] for _ in range(MRIQ_LEGS - 1)]
+    source = NvmlSource(torch.device("cuda"))
+    log(f"[nvml] {source.describe()} (bus {source.bus_id})")
+    phase_calibrate(source)
 
-    def mriq():
-        phase_mriq(card, host, earlier)
     for arch in PATH_KERNELS:           # one model's weights at a time
-        path = run_path(arch, counters,
-                        seeds=PREFILL_SEEDS if arch == "qwen2-7b" else (0,),
-                        mriq=mriq if arch == "qwen2-7b" else None)
+        qwen = arch == "qwen2-7b"
+        path = run_path(
+            arch, counters,
+            seeds=PREFILL_SEEDS if qwen else (0,),
+            before=(lambda: phase_fig5(source)) if qwen else None,
+            after=(lambda m, p: phase_offload(m, p, source)) if qwen
+            else None)
         for name, n in path["launches"].items():
             launches[name] += n
         if arch == "qwen2-7b":          # outside the counted path
@@ -1117,8 +1293,8 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
-        kernels.append({"name": name, "route": "cuda", "source": source,
+    for name, (src, replaces) in SOURCES.items():
+        kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces, "launches": launches[name],
                         **rows[name]})
     print(card["smi"])

@@ -12,7 +12,9 @@ from repro_torch.configs.base import (  # noqa: F401
     PlanConfig,
     ShapeSpec,
     SHAPES,
+    CARD_SHAPES,
     get_config,
+    get_shape,
     list_archs,
 )
 

@@ -86,6 +86,26 @@ SHAPES: dict[str, ShapeSpec] = {
     "long_500k": ShapeSpec("long_500k", 524288, 1, "decode"),
 }
 
+#: shapes the measured rung runs on one H100 (``core.backends``).  The
+#: reference's SHAPES are pod shapes: qwen2-7b's prefill_32k is 32 x 32768
+#: tokens, far above one card's 80 GB.  These cut only the batch, and stay
+#: out of SHAPES so ``ArchConfig.applicable_shapes`` match the
+#: reference's.
+CARD_SHAPES: dict[str, ShapeSpec] = {
+    "prefill_32k_b1": ShapeSpec("prefill_32k_b1", 32768, 1, "prefill"),
+    "decode_32k_b8": ShapeSpec("decode_32k_b8", 32768, 8, "decode"),
+}
+
+
+def get_shape(name: str) -> ShapeSpec:
+    """A shape by name: SHAPES, then CARD_SHAPES."""
+    if name in SHAPES:
+        return SHAPES[name]
+    if name in CARD_SHAPES:
+        return CARD_SHAPES[name]
+    raise KeyError(f"unknown shape {name!r}; have "
+                   f"{sorted(SHAPES) + sorted(CARD_SHAPES)}")
+
 
 # ---------------------------------------------------------------------------
 # Architecture configuration.

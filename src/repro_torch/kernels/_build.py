@@ -110,6 +110,7 @@ class CudaKernel:
         self.name = name
         self.argtypes = argtypes
         self.launches = 0
+        self._lib: Optional[ctypes.CDLL] = None
         self._fn: Optional[ctypes._CFuncPtr] = None
         self._errstr: Optional[ctypes._CFuncPtr] = None
 
@@ -124,7 +125,7 @@ class CudaKernel:
         err = getattr(lib, f"{self.name}_error_string")
         err.argtypes = [c_int]
         err.restype = ctypes.c_char_p
-        self._fn, self._errstr = fn, err
+        self._lib, self._fn, self._errstr = lib, fn, err
 
     def launch(self, *args) -> None:
         self.load()
@@ -134,6 +135,16 @@ class CudaKernel:
             msg = self._errstr(rc).decode()
             raise RuntimeError(f"{self.name} kernel launch failed: CUDA "
                                f"error {rc} ({msg})")
+
+    def requested_smem(self) -> int:
+        """The most dynamic shared memory a kernel of the last launch
+        asked for, as the launcher recorded it (``<name>_requested_smem``;
+        the four kernels narrowing pre-checks export it)."""
+        self.load()
+        fn = getattr(self._lib, f"{self.name}_requested_smem")
+        fn.argtypes = []
+        fn.restype = c_int
+        return int(fn())
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -103,6 +103,23 @@ __device__ __forceinline__ void lds(const float* p, float* o) {
 
 }  // namespace rt
 
+// The most dynamic shared memory a kernel of a launcher's last call asked
+// for: the launcher sets it to 0 on entry and notes each request.  Read back
+// through <name>_requested_smem, which the card tests hold each wrapper's
+// smem_bytes to (the figure narrowing's resource pre-check uses).
+namespace rt {
+inline int& smem_requested() {
+  static int bytes = 0;
+  return bytes;
+}
+inline void note_smem(int bytes) {
+  if (bytes > smem_requested()) smem_requested() = bytes;
+}
+}  // namespace rt
+
+#define RT_REQUESTED_SMEM(name) \
+  extern "C" int name##_requested_smem() { return rt::smem_requested(); }
+
 // Every launcher library exports its CUDA error strings for the wrapper.
 #define RT_ERROR_STRING(name)                                         \
   extern "C" const char* name##_error_string(int e) {                 \

@@ -200,6 +200,7 @@ cudaError_t run(const void* q, const void* k, const void* v, void* o, int B,
                 int S, int Tk, int Hq, int Hkv, int D, int causal, int window,
                 float scale, cudaStream_t st) {
   const int smem = (2 * D * BQ + BK * D + BK * BQ) * (int)sizeof(float);
+  rt::note_smem(smem);
   cudaError_t e = cudaFuncSetAttribute(
       attn_kernel<T, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -426,6 +427,7 @@ cudaError_t run_tc(const void* q, const void* k, const void* v, void* o,
                    int window, float scale, cudaStream_t st) {
   using A = AttnTile<DMAX, WARPS>;
   auto kern = attn_tc_kernel<DMAX, WARPS>;
+  rt::note_smem(A::SMEM);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, A::SMEM);
   if (e != cudaSuccess) return e;
@@ -444,6 +446,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
                                       int Tk, int Hq, int Hkv, int D,
                                       int causal, int window, float scale,
                                       int dtype, void* stream) {
+  rt::smem_requested() = 0;
   if (D <= 0 || D % 8 || D > 256 || (D > 128 && D % 16) || Hkv <= 0 ||
       Hq % Hkv)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -465,3 +468,4 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 }
 
 RT_ERROR_STRING(flash_attention)
+RT_REQUESTED_SMEM(flash_attention)

@@ -104,6 +104,7 @@ rglru_kernel(const float* __restrict__ log_a, const float* __restrict__ b,
 
 extern "C" int rglru_launch(const void* log_a, const void* b, void* h, int B,
                             int S, int W, void* stream) {
+  rt::smem_requested() = 0;  // static shared memory only
   if (B < 0 || S < 0 || W < 0) return static_cast<int>(cudaErrorInvalidValue);
   if (B == 0 || S == 0 || W == 0) return 0;
   const dim3 grid((W + LANES - 1) / LANES, B);
@@ -114,3 +115,4 @@ extern "C" int rglru_launch(const void* log_a, const void* b, void* h, int B,
 }
 
 RT_ERROR_STRING(rglru)
+RT_REQUESTED_SMEM(rglru)

@@ -952,12 +952,14 @@ cudaError_t run_bf16(const void* x, const void* dt, const void* A,
   const int PP = up16(P), NP = up16(N), LDP = PP + 8, LDN = NP + 8;
   const int vec = P % 8 == 0 && N % 8 == 0;  // 16-byte rows of x, B, C, S
   const int smem0 = 2 * BT * LDN * 2;
+  rt::note_smem(smem0);
   RT_TRY(allow_smem<chunk_gram_tc>());
   chunk_gram_tc<<<dim3(nq * (nq + 1) / 2, nc, B), TC_THREADS, smem0, st>>>(
       static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm), w.gram, S,
       N, Q, nc, nq, vec);
   RT_TRY(cudaGetLastError());
   const int smem1 = KG * (LDP + LDN) * 2 + (2 * Q + WARPS) * 4;
+  rt::note_smem(smem1);
   RT_TRY(allow_smem<chunk_state_tc>());
   chunk_state_tc<<<dim3(nc, H, B), THREADS, smem1, st>>>(
       static_cast<const bf16*>(x), static_cast<const float*>(dt),
@@ -969,6 +971,7 @@ cudaError_t run_bf16(const void* x, const void* dt, const void* A,
   const int stage = BT * LDG * 4 + BT * LDP * 2;
   const int smem3 =
       stage + std::max(stage, (BT + PP) * LDN * 2) + 2 * nq * BT * 4;
+  rt::note_smem(smem3);
   const dim3 grid(nc * nq, H, B);
   return (P <= 64 ? scan_tc<64> : scan_tc<128>)(grid, smem3, st, x, dt, Cm, w,
                                                 y, S, H, P, N, Q, nc, nq,
@@ -981,6 +984,7 @@ cudaError_t state_f32(dim3 grid, cudaStream_t st, const void* x,
                       const Scratch& w, int S, int H, int P, int N, int Q,
                       int nc) {
   const int smem = (BT * (64 * U + 4) + BT * (64 * V + 4) + 2 * Q + WARPS) * 4;
+  rt::note_smem(smem);
   RT_TRY((allow_smem<chunk_state_f32<U, V>>()));
   chunk_state_f32<U, V><<<grid, THREADS, smem, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt),
@@ -997,6 +1001,7 @@ cudaError_t scan_f32(dim3 grid, cudaStream_t st, const void* x,
   constexpr int LDX = 64 * V + 4;
   const int smem =
       (BT * LDX + BT * LDT + 2 * nq * BT + N * LDT + N * LDX) * 4;
+  rt::note_smem(smem);
   RT_TRY(allow_smem<chunk_scan_f32<V>>());
   chunk_scan_f32<V><<<grid, THREADS, smem, st>>>(
       static_cast<const float*>(x), static_cast<const float*>(dt),
@@ -1011,6 +1016,7 @@ cudaError_t run_f32(const void* x, const void* dt, const void* A,
                     int Q, cudaStream_t st) {
   const int nc = (S + Q - 1) / Q, nq = (Q + BT - 1) / BT;
   const int smem0 = 2 * N * LDT * 4;
+  rt::note_smem(smem0);
   RT_TRY(allow_smem<chunk_gram_f32>());
   chunk_gram_f32<<<dim3(nq * (nq + 1) / 2, nc, B), THREADS, smem0, st>>>(
       static_cast<const float*>(Bm), static_cast<const float*>(Cm), w.gram, S,
@@ -1036,6 +1042,7 @@ extern "C" int ssd_launch(const void* x, const void* dt, const void* A,
                           void* ws_states, void* ws_enter, void* ws_cum,
                           void* ws_gram, int B, int S, int H, int P, int N,
                           int Q, int dtype, void* stream) {
+  rt::smem_requested() = 0;
   if (B <= 0 || S <= 0 || H <= 0 || P <= 0 || P > DMAX || N <= 0 ||
       N > DMAX || Q <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -1053,3 +1060,4 @@ extern "C" int ssd_launch(const void* x, const void* dt, const void* A,
 }
 
 RT_ERROR_STRING(ssd)
+RT_REQUESTED_SMEM(ssd)

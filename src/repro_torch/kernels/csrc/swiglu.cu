@@ -196,6 +196,7 @@ cudaError_t run(const void* x, const void* wi, const void* wg, const void* wo,
                 float* y32, void* y, int Tn, int d, int f, cudaStream_t st) {
   auto kern = swiglu_kernel<T, BT, TM, TN, TM2, TN2>;
   const int smem = (BF * BT + DK * BT + 2 * DK * BF) * (int)sizeof(float);
+  rt::note_smem(smem);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
@@ -522,6 +523,7 @@ template <class G>
 cudaError_t gemm(const bf16* A, const bf16* B0, const bf16* B1, int M, int N,
                  int K, int kc, float* ws, cudaStream_t st) {
   auto kern = gemm_kernel<G>;
+  rt::note_smem(G::SMEM);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (e != cudaSuccess) return e;
@@ -535,6 +537,7 @@ template <class G, int EPI>
 cudaError_t wgmma_gemm(const bf16* X, const bf16* W0, const bf16* W1, int N,
                        int M, int K, bf16* out, cudaStream_t st) {
   auto kern = wgmma_gemm_kernel<G, EPI>;
+  rt::note_smem(G::SMEM);
   cudaError_t e = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, G::SMEM);
   if (e != cudaSuccess) return e;
@@ -595,6 +598,7 @@ extern "C" int swiglu_launch(const void* x, const void* wi, const void* wg,
                              const void* wo, void* ws, void* a, void* y,
                              int Tn, int d, int f, int design, int kc1,
                              int kc2, void* stream) {
+  rt::smem_requested() = 0;
   if (d <= 0 || f <= 0 || d % 8 || f % 8 || Tn < 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (Tn == 0) return 0;
@@ -615,3 +619,4 @@ extern "C" int swiglu_launch(const void* x, const void* wi, const void* wg,
 }
 
 RT_ERROR_STRING(swiglu)
+RT_REQUESTED_SMEM(swiglu)

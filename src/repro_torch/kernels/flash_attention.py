@@ -21,6 +21,21 @@ KERNEL = CudaKernel("flash_attention",
                                                  c_ptr])
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 256
+#: the f32 kernel's query and key tiles (csrc ``BQ``, ``BK``)
+F32_TILE = 64
+
+
+def smem_bytes(d: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory the launcher requests at head dim ``d``.
+    bf16 (``AttnTile``): a Q tile and two stages of K and V tiles of 64
+    keys, rows of DMAX + 8 bf16 (64 queries and DMAX 128 up to D 128, else
+    128 and 256); f32: Qᵀ twice, Kᵀ, V and Pᵀ in f32."""
+    if dtype == torch.bfloat16:
+        bq, dmax = (64, 128) if d <= 128 else (128, 256)
+        return (bq + 4 * 64) * (dmax + 8) * 2
+    if dtype == torch.float32:
+        return (2 * d * F32_TILE + F32_TILE * d + F32_TILE * F32_TILE) * 4
+    raise TypeError(f"dtype {dtype} not in {tuple(DTYPES)}")
 
 
 def flash_attention_cuda(q, k, v, causal: bool = True, window: int = 0):

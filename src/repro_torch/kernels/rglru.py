@@ -16,6 +16,12 @@ from repro_torch.kernels._build import (CudaKernel, c_int, c_ptr,
 KERNEL = CudaKernel("rglru", [c_ptr] * 3 + [c_int] * 3 + [c_ptr])
 
 
+def smem_bytes() -> int:
+    """Dynamic shared memory the launcher requests: none (its warps meet
+    in 4 KB of static shared memory)."""
+    return 0
+
+
 def rglru_cuda(log_a, b):
     """log_a, b (B,S,W) f32 -> h (B,S,W) f32, h_t = exp(log_a_t) h_{t-1}
     + b_t from h = 0."""

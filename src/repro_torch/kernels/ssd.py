@@ -21,6 +21,34 @@ MAX_HEAD_DIM = 128
 MAX_STATE = 128
 
 
+def _up16(n: int) -> int:
+    return (n + 15) // 16 * 16
+
+
+def smem_bytes(p: int, n: int, q: int, dtype: torch.dtype) -> int:
+    """Dynamic shared memory the launcher requests at head dim ``p``,
+    state ``n`` and chunk ``q``: the largest of its passes' (scores C Bᵀ,
+    the chunk states, the chunk scan; csrc tiles of 64 positions)."""
+    bt, nq = 64, -(-q // 64)
+    if dtype == torch.bfloat16:
+        pp, np_ = _up16(p), _up16(n)
+        ldp, ldn = pp + 8, np_ + 8
+        gram = 2 * bt * ldn * 2
+        state = 256 * (ldp + ldn) * 2 + (2 * q + 8) * 4
+        stage = bt * (bt + 8) * 4 + bt * ldp * 2
+        scan = stage + max(stage, (bt + pp) * ldn * 2) + 2 * nq * bt * 4
+        return max(gram, state, scan)
+    if dtype == torch.float32:
+        ldt = bt + 4
+        u, v = (1 if p <= 64 else 2), (1 if n <= 64 else 2)
+        gram = 2 * n * ldt * 4
+        state = (bt * (64 * u + 4) + bt * (64 * v + 4) + 2 * q + 8) * 4
+        ldx = 64 * u + 4
+        scan = (bt * ldx + bt * ldt + 2 * nq * bt + n * ldt + n * ldx) * 4
+        return max(gram, state, scan)
+    raise TypeError(f"dtype {dtype} not in {tuple(DTYPES)}")
+
+
 def ssd_cuda(x, dt, A, Bm, Cm, chunk: int):
     """x (B,S,H,P) and Bm/Cm (B,S,N) in one dtype, dt (B,S,H) and A (H,)
     f32 -> (y (B,S,H,P) in x's dtype, final state (B,H,P,N) f32), chunks

@@ -68,6 +68,34 @@ def plan(t: int, d: int, f: int, dtype: torch.dtype,
     return {"design": "prefill", "ws": 0, "a": t * f, "kc1": 0, "kc2": 0}
 
 
+def _tile_smem(bm: int, bn: int, bk: int, stages: int, dual: bool) -> int:
+    """An mma.sync decode ``Tile``'s ring: per stage an A tile and one or
+    two B tiles, rows padded by 8 bf16."""
+    return stages * (bm * (bk + 8) + (2 if dual else 1) * bk * (bn + 8)) * 2
+
+
+def _wg_tile_smem(stages: int, dual: bool) -> int:
+    """A wgmma prefill ``WgTile``'s ring: per stage 128 x 64 token rows
+    and one or two 128 x 64 weight tiles, bf16, + 1 KB alignment slack."""
+    return stages * (128 * 64 * 2 + (2 if dual else 1) * 128 * 64 * 2) \
+        + 1024
+
+
+def smem_bytes(t: int, d: int, f: int, dtype: torch.dtype,
+               design: str | None = None) -> int:
+    """Dynamic shared memory the launcher requests for (T, d) x (d, f):
+    the larger of the two products' (f32: the one kernel's gated tile,
+    x tile and weight panels, 8 or 64 tokens a tile)."""
+    p = plan(t, d, f, dtype, design)["design"]
+    if p == "f32":
+        bt = 8 if t <= 32 else 64
+        return (128 * bt + 32 * bt + 2 * 32 * 128) * 4
+    if p == "decode":
+        return max(_tile_smem(32, 64, 64, 4, True),
+                   _tile_smem(32, 64, 64, 4, False))
+    return max(_wg_tile_smem(4, True), _wg_tile_smem(3, False))
+
+
 def swiglu_cuda(x, wi, wg, wo, design: str | None = None, out_a=None):
     """x (T,d); wi, wg (d,f); wo (f,d) -> (T,d), all one dtype; d and f
     multiples of 8.  ``design`` overrides ``plan``'s choice; ``out_a``, a

@@ -234,8 +234,9 @@ class ModeledSource:
 
 def envelope_for(hw: HardwareSpec, boost_headroom: float = 0.12
                  ) -> PowerEnvelope:
-    """Derive idle/active/boost from a chip's roofline energy constants."""
-    p_dyn = hw.peak_flops * hw.e_flop + hw.hbm_bw * hw.e_hbm
+    """Derive idle/active/boost from a chip's roofline energy constants,
+    at the rates its time terms use."""
+    p_dyn = hw.flops_rate * hw.e_flop + hw.bytes_rate * hw.e_hbm
     p_active = hw.p_static + p_dyn
     return PowerEnvelope(name=hw.name, p_idle=hw.p_static, p_active=p_active,
                          p_boost=p_active * (1.0 + boost_headroom))

@@ -12,8 +12,9 @@ Watt*seconds to float-sum noise:
     utilization) into Watt*seconds through a DVFS envelope, appends it to
     its trace on a cumulative busy-time timeline and books it.
 
-Fleet-plane pieces of the reference (``absorb``/``merge``, persistence,
-step drift, ``drain_delta``, ``WsBudget``) wait for the fleet slice.
+``per_phase`` feeds ``telemetry.report.render_ledger``.  Fleet-plane
+pieces of the reference (``absorb``/``merge``, persistence, step drift,
+``drain_delta``, ``WsBudget``) wait for the fleet slice.
 """
 from __future__ import annotations
 
@@ -39,6 +40,10 @@ class PhaseEnergy:
     seconds: float = 0.0
     count: int = 0
     peak_w: float = 0.0
+
+    @property
+    def avg_watts(self) -> float:
+        return self.ws / self.seconds if self.seconds > 0 else 0.0
 
     def fold(self, ws: float, seconds: float, count: int = 1,
              peak_w: float = 0.0) -> None:
@@ -87,6 +92,11 @@ class EnergyLedger:
     @property
     def total_seconds(self) -> float:
         return sum(p.seconds for p in self.phases.values())
+
+    def per_phase(self) -> dict:
+        return {n: {"ws": p.ws, "seconds": p.seconds, "count": p.count,
+                    "avg_w": p.avg_watts, "peak_w": p.peak_w}
+                for n, p in self.phases.items()}
 
     def rollup(self, by: str = "node") -> dict:
         """Aggregate the cells along one dimension: ``label ->

@@ -12,7 +12,8 @@ a bounded ring buffer of ``(t, watts)`` samples with
     ``mark_phase``) so energy can be attributed to program phases,
   * peak / percentile / average statistics.
 
-(The reference's JSONL persistence waits for the port's reporting slice.)
+``to_jsonl``/``from_jsonl`` keep the reference's line format, so a trace
+written by either package reads in the other.
 
 Samples evicted from the ring keep contributing to the *total* energy and
 duration (the integral of the dropped prefix is accumulated), so a bounded
@@ -24,10 +25,12 @@ busy-time timeline; its ``integrate()`` equals the meter ledger's total.
 """
 from __future__ import annotations
 
+import json
 import time
 from collections import deque
 from contextlib import contextmanager
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Callable, Iterator, Optional
 
 
@@ -190,6 +193,44 @@ class PowerTrace:
                     if s.name == name), default=0.0)
         return {"name": name, "ws": ws, "seconds": secs,
                 "avg_w": ws / secs if secs > 0 else 0.0, "peak_w": peak}
+
+    # -- persistence ---------------------------------------------------------
+
+    def to_jsonl(self, path: str | Path) -> Path:
+        path = Path(path)
+        path.parent.mkdir(parents=True, exist_ok=True)
+        with path.open("w") as f:
+            f.write(json.dumps({"kind": "meta", "maxlen": self.maxlen,
+                                "evicted_ws": self.evicted_ws,
+                                "evicted_seconds": self.evicted_seconds,
+                                "meta": self.meta}) + "\n")
+            for t, w in self.samples:
+                f.write(json.dumps({"kind": "sample", "t": t, "w": w}) + "\n")
+            for s in self.spans:
+                f.write(json.dumps({"kind": "phase", "name": s.name,
+                                    "t0": s.t0, "t1": s.t1,
+                                    "depth": s.depth}) + "\n")
+        return path
+
+    @classmethod
+    def from_jsonl(cls, path: str | Path) -> "PowerTrace":
+        trace = cls()
+        for line in Path(path).read_text().splitlines():
+            if not line.strip():
+                continue
+            rec = json.loads(line)
+            kind = rec.get("kind")
+            if kind == "meta":
+                trace.maxlen = rec.get("maxlen", trace.maxlen)
+                trace.evicted_ws = rec.get("evicted_ws", 0.0)
+                trace.evicted_seconds = rec.get("evicted_seconds", 0.0)
+                trace.meta = rec.get("meta", {})
+            elif kind == "sample":
+                trace.samples.append((rec["t"], rec["w"]))
+            elif kind == "phase":
+                trace.spans.append(PhaseSpan(rec["name"], rec["t0"],
+                                             rec["t1"], rec.get("depth", 0)))
+        return trace
 
     def summary(self) -> dict:
         return {"samples": len(self.samples), "seconds": self.duration,

@@ -482,3 +482,100 @@ def _reduced_on_the_card(arch):
         lg, cache = gpu.decode_step(
             gparams, {"tokens": toks[:, t:t + 1].cuda(), "pos": t}, cache)
         assert float((lg - full[:, t]).abs().max()) < 1e-3
+
+
+# ---------------------------------------------------------------------------
+# What narrowing's resource pre-check and the NVML power source read
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [8, 64, 128, 144, 256])
+def test_flash_smem_figure_is_what_its_launcher_requests(cuda, dtype, d):
+    rng = np.random.default_rng(0)
+    q = _randn(rng, (1, 70, 2, d), dtype)
+    FA.flash_attention_cuda(q, q[:, :, :1].contiguous(),
+                            q[:, :, :1].contiguous())
+    assert FA.KERNEL.requested_smem() == FA.smem_bytes(d, dtype)
+    assert FA.smem_bytes(d, dtype) <= torch.cuda.get_device_properties(
+        cuda).shared_memory_per_block_optin
+
+
+@pytest.mark.parametrize("dtype,t", [(torch.float32, 8), (torch.float32, 40),
+                                     (torch.bfloat16, 8),
+                                     (torch.bfloat16, 65)])
+def test_swiglu_smem_figure_is_what_its_launcher_requests(cuda, dtype, t):
+    rng = np.random.default_rng(1)
+    x = _randn(rng, (t, 64), dtype)
+    wi, wg = (_randn(rng, (64, 128), dtype, 0.1) for _ in "ig")
+    SG.swiglu_cuda(x, wi, wg, _randn(rng, (128, 64), dtype, 0.1))
+    assert SG.KERNEL.requested_smem() == SG.smem_bytes(t, 64, 128, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s,chunk,p,n", [(512, 256, 64, 128),
+                                         (130, 130, 24, 36),
+                                         (64, 16, 128, 16)])
+def test_ssd_smem_figure_is_what_its_launcher_requests(cuda, dtype, s,
+                                                        chunk, p, n):
+    rng = np.random.default_rng(2)
+    SD.ssd_cuda(*_ssd_inputs(rng, 1, s, 2, p, n, dtype), chunk)
+    assert SD.KERNEL.requested_smem() == SD.smem_bytes(p, n, min(chunk, s),
+                                                       dtype)
+
+
+def test_rglru_smem_figure_is_what_its_launcher_requests(cuda):
+    rng = np.random.default_rng(3)
+    RG.rglru_cuda(-torch.abs(_randn(rng, (1, 9, 40))),
+                  _randn(rng, (1, 9, 40)))
+    assert RG.KERNEL.requested_smem() == RG.smem_bytes() == 0
+
+
+def test_nvml_source_reads_a_draw_within_the_power_limit(cuda):
+    from repro_torch.telemetry.nvml import (WINDOW_S, NvmlSource,
+                                            check_window, sample_window)
+    src = NvmlSource(cuda)
+    assert src.name and 0 < src.period < 1.0
+
+    def spin():
+        torch.cuda._sleep(1_000_000)
+        torch.cuda.synchronize()
+    win = sample_window(src, spin, WINDOW_S)
+    assert 0 < win.watts <= src.power_limit_w * 1.05
+    check_window("spin", win.counter)
+
+
+def test_nvml_energy_counter_is_monotone(cuda):
+    import time
+    from repro_torch.telemetry.nvml import NvmlSource
+    src = NvmlSource(cuda, period=0.01)
+    reads = []
+    for _ in range(40):
+        reads.append(src.energy_j())
+        time.sleep(0.01)
+    assert all(b >= a for a, b in zip(reads, reads[1:]))
+    assert reads[-1] > reads[0]
+
+
+def test_measured_rung_launches_the_kernels_its_plan_names(cuda,
+                                                           monkeypatch):
+    from repro_torch.configs import CARD_SHAPES, ShapeSpec
+    from repro_torch.core.backends import (MeasureContext, MeasuredBackend,
+                                           plan_kernels)
+    from repro_torch.core.plan import PlanGenome
+    from repro_torch.telemetry.nvml import check_window
+    monkeypatch.setitem(CARD_SHAPES, "card_test",
+                        ShapeSpec("card_test", 256, 2, "prefill"))
+    cfg = get_config("qwen2-7b", reduced=True)
+    plan = cfg.plan.replace(attn_impl="pallas", mlp_impl="pallas")
+    m = MeasuredBackend(device=cuda).measure(MeasureContext(cfg, "card_test"),
+                                             plan)
+    assert m.ok and m.source == "measured"
+    want = plan_kernels(plan, PlanGenome.gene_names(cfg, "prefill"))
+    assert want == ["flash_attention", "swiglu"]
+    launches = m.trace.meta["launches"]
+    assert all(launches[k] > 0 for k in want)
+    assert launches["ssd"] == launches["rglru"] == 0
+    check_window("trial", m.trace.meta["counter"])
+    assert m.energy_j == pytest.approx(m.trace.integrate(), rel=1e-12)
+    assert 0 < m.watts <= m.trace.meta["power_limit_w"] * 1.05
