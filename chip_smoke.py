@@ -75,6 +75,24 @@ a non-zero exit and no result line:
                        the kernels its genes name;
               counts   the kernels' launch counts over that model's path,
                        each kernel of the path > 0;
+              fleet    (qwen2-7b's path, on its loaded weights, counted as a
+                       path of its own: swiglu must launch) Step 7 and the
+                       object fleet: (a) the serving CLI's library entry
+                       (``repro_torch.launch.serve.run``): 16 requests on
+                       two nodes of 8 slots with paced arrivals, teamB's
+                       Ws budget (it must be throttled, with zero Ws
+                       booked), consolidate-and-gate placement and a
+                       governor per node re-verifying on the measured
+                       rung; every admitted request finishes, the bills
+                       sum to the fleet ledger and its rollups, the
+                       attribution conserves each node and the persisted
+                       ledger reads back; (b) one governed node whose
+                       watts step up 3x partway through serving 8
+                       requests: exactly one migration judged, the
+                       pending plan and the incumbent each measured on
+                       the card at decode_32k_b8 (a 32k cache at batch 8,
+                       16 decode steps a call, a 5-s NVML window), neither
+                       a penalty; the event and both trials printed;
   6. profile  qwen2-7b's 8 requests served again, and one bf16 prefill of
               mamba2-1.3b, under torch.profiler: kernels by device time,
               the CUDA runtime calls by host time, and the device's busy
@@ -1126,6 +1144,9 @@ class Recorded:
         self.name = backend.name
         self.trials: list = []
 
+    def __getattr__(self, name):
+        return getattr(self.backend, name)
+
     def measure(self, ctx, plan):
         m = self.backend.measure(ctx, plan)
         self.trials.append((plan, m))
@@ -1206,6 +1227,241 @@ def phase_offload(model, params, source) -> dict:
     return out
 
 
+#: the fleet phase's CLI run (launch/serve.py's object engine): two nodes
+#: of 8 slots on the one card, paced arrivals, teamB under a Ws budget
+#: small enough to throttle it (its window is the whole 64-step run).  A
+#: qwen2-7b request bills 400-650 Ws at the H100 envelope on the card, so
+#: teamB is served about twice and then throttled
+FLEET_BUDGET_WS = 900.0
+FLEET_ARGS = ["--fleet", "2", "--slots", "8", "--max-seq", "256",
+              "--max-new", "16", "--requests", "16",
+              "--tenants", "teamA,teamB",
+              "--admission", f"teamB={FLEET_BUDGET_WS:g}",
+              "--admission-window", "64", "--arrival-every", "2",
+              "--placement", "gate", "--govern", "--verify-rung", "measured"]
+#: the governed drift run: the node's watts step up 3x after DRIFT_AFTER
+#: decode steps of busy time (the reference's own acceptance setup in
+#: tests/test_governor.py: a replayed source with a boost-watts tail)
+DRIFT_WATTS = (300.0, 900.0)
+DRIFT_AFTER = 6
+RECON_SHAPE = "decode_32k_b8"
+
+
+def check_fleet_run(out: dict, vocab: int, ledger_path: Path) -> dict:
+    """The CLI run's invariants: every admitted request finished with
+    tokens in the vocabulary, the bills sum to the fleet ledger and every
+    rollup to its total, attribution conserves each node, the persisted
+    ledger reads back, and teamB was throttled with zero Ws booked."""
+    from repro_torch.telemetry import EnergyLedger
+    sched, done = out["sched"], out["finished"]
+    rejected = {r.rid for r in out["admission"].rejections}
+    admitted = [r for r in out["requests"] if r.rid not in rejected]
+    if sorted(r.rid for r in done) != sorted(r.rid for r in admitted):
+        raise RuntimeError(f"fleet: admitted requests did not all finish "
+                           f"({sorted(r.rid for r in done)})")
+    for r in done:
+        if not (1 <= len(r.out) <= 16
+                and all(0 <= t < vocab for t in r.out)):
+            raise RuntimeError(f"fleet: request {r.rid} output {r.out}")
+    if not rejected or "teamB" not in out["admission"].rejected_by_tenant():
+        raise RuntimeError("fleet: teamB was never throttled")
+    served = {r.rid for n in sched.nodes for r in n.served}
+    for r in out["requests"]:
+        if r.rid in rejected and (r.energy_ws != 0.0 or r.rid in served):
+            raise RuntimeError(f"fleet: throttled request {r.rid} booked "
+                               f"{r.energy_ws} Ws")
+    led = sched.ledger
+    infra = led.rollup("tenant").get("fleet")
+    billed = sum(r.energy_ws for r in done) + (infra.ws if infra else 0.0)
+    if not math.isclose(billed, led.total_ws, rel_tol=1e-9):
+        raise RuntimeError(f"fleet: bills {billed} Ws != ledger "
+                           f"{led.total_ws} Ws")
+    for by in ("node", "tenant", "phase"):
+        cut = sum(pe.ws for pe in led.rollup(by).values())
+        if not math.isclose(cut, led.total_ws, rel_tol=1e-9):
+            raise RuntimeError(f"fleet: rollup by {by} sums to {cut} Ws")
+    meters = sum(n.meter.ledger.total_ws for n in sched.nodes)
+    if not math.isclose(meters, led.total_ws, rel_tol=1e-9):
+        raise RuntimeError("fleet: the node meters do not sum to the ledger")
+    rows = out["attribution"].conservation(led)
+    if not rows or not all(row["ok"] for row in rows.values()):
+        raise RuntimeError(f"fleet: attribution DRIFT {rows}")
+    back = EnergyLedger.from_json(ledger_path).total_ws
+    if not math.isclose(back, led.total_ws, rel_tol=1e-12):
+        raise RuntimeError(f"fleet: the ledger JSON reads back {back} Ws")
+    tenant_ws = {t: pe.ws for t, pe in led.rollup("tenant").items()}
+    served_by = {t: sum(1 for r in done if r.tenant == t)
+                 for t in ("teamA", "teamB")}
+    return {"served": len(done), "throttled": sorted(rejected),
+            "tokens": sum(len(r.out) for r in done),
+            "ledger_ws": led.total_ws, "tenant_ws": tenant_ws,
+            "ws_per_request": {t: tenant_ws[t] / n
+                               for t, n in served_by.items() if n},
+            "fleet_steps": sched.steps,
+            "drains": [e.to_dict() for e in sched.events],
+            "placement": [e.to_dict() for e in out["planner"].events],
+            "reconfig": [e.to_dict() for n in out["nodes"]
+                         for e in n.governor.events],
+            "wall_s": out["wall_s"]}
+
+
+def report_trials(what: str, trials: list) -> list:
+    """Each measured trial of a governor's re-verification: its window
+    must pass the counter check and be no penalty."""
+    from repro_torch.core.backends import plan_tag
+    from repro_torch.telemetry.nvml import check_window
+    rows = []
+    for plan, m in trials:
+        name = (f"{what} trial plan {plan_tag(plan)} ({plan.attn_impl} "
+                f"attention, {plan.mlp_impl} mlp, {plan.kv_cache_dtype} "
+                f"cache) at {RECON_SHAPE}")
+        if not m.ok:
+            raise RuntimeError(f"{name}: PENALTY {m.error}")
+        check_window(name, m.trace.meta["counter"])
+        log(f"{name}: {m.seconds:.4f} s, {m.watts:.2f} W, {m.energy_j:.3f} "
+            f"Ws a call of {m.trace.meta['calls']} (16 decode steps, card-"
+            f"only), fitness {m.fitness():.6f}, peak "
+            f"{m.peak_mem_per_chip / 1e9:.2f} GB, launches "
+            f"{m.trace.meta['launches']}")
+        rows.append({"plan": plan_tag(plan), "attn_impl": plan.attn_impl,
+                     "mlp_impl": plan.mlp_impl, "seconds": m.seconds,
+                     "watts": m.watts, "ws": m.energy_j,
+                     "fitness": m.fitness(),
+                     "calls": m.trace.meta["calls"],
+                     "peak_gb": m.peak_mem_per_chip / 1e9})
+    return rows
+
+
+def phase_fleet(model, params, source) -> dict:
+    """Step 7 and the object fleet on the card, on qwen2-7b's loaded
+    weights under the offload plan.  (a) the serving CLI's library entry
+    (launch/serve.py): two nodes under one scheduler, admission, placement
+    and per-node governors re-verifying on the measured rung; (b) one
+    governed node whose watts step up partway through serving: exactly one
+    migration judged, both plans tried on the card at decode_32k_b8."""
+    from repro_torch import obs
+    from repro_torch.core.adapt import ReconfigPolicy, Reconfigurator
+    from repro_torch.core.backends import MeasuredBackend
+    from repro_torch.core.ga import GAConfig
+    from repro_torch.core.verifier import Verifier
+    from repro_torch.fleet import Node
+    from repro_torch.launch import serve
+    from repro_torch.serve.engine import Request
+    from repro_torch.telemetry import (GovernorPolicy, PowerGovernor,
+                                       ReplaySource)
+    cfg = model.cfg
+    out_dir = Path(__file__).resolve().parent / "artifacts" / "serve"
+    files = {"ledger": out_dir / "fleet.json",
+             "spans": out_dir / "trace.json",
+             "metrics": out_dir / "metrics.prom"}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    log(f"[fleet] {cfg.name} full width, offload plan: both nodes serve "
+        f"one model and its weights and time-share the one card; teamB's "
+        f"budget {FLEET_BUDGET_WS:g} Ws per 64-step window")
+    args = serve.parser().parse_args(FLEET_ARGS + [
+        "--ledger-out", str(files["ledger"]),
+        "--trace-spans", str(files["spans"]),
+        "--metrics-out", str(files["metrics"])])
+    cli_rung = Recorded(MeasuredBackend(source=source,
+                                        params={cfg.name: params}, log=log))
+    try:
+        run = serve.run(args, model=model, params=params, measured=cli_rung)
+    finally:
+        obs.disable()
+    cli = check_fleet_run(run, cfg.vocab_size, files["ledger"])
+    for node in run["nodes"]:
+        for ev in node.governor.events:
+            log(f"[fleet] cli {ev.node}: drift {ev.drift_ratio:.2f}x at "
+                f"step {ev.detected_step} (not injected: the wall clock's "
+                f"own) -> {'APPLIED' if ev.applied else 'REJECTED'} "
+                f"{ev.reject_reason}")
+    cli["trials"] = report_trials("[fleet] cli", cli_rung.trials)
+    cli["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[fleet] cli: {cli['served']} served, throttled {cli['throttled']}, "
+        f"{cli['tokens']} tokens, {cli['fleet_steps']} fleet steps in "
+        f"{cli['wall_s']:.3f} s; ledger {cli['ledger_ws']:.3f} Ws at the "
+        f"H100 envelope, Ws/request {cli['ws_per_request']}; "
+        f"{len(cli['drains'])} drains, {len(cli['placement'])} placement "
+        f"events, {len(cli['reconfig'])} governor events; peak "
+        f"{cli['peak_gb']:.2f} GB")
+
+    # (b) the governed drift run: the first step fills the 8 slots
+    # (teacher-forcing each prompt) and decodes once; the watts step is
+    # then placed DRIFT_AFTER - 1 decode steps further on the node's busy
+    # timeline, at the step time that first step measured
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    reqs = []
+    for i in range(8):
+        plen = int(rng.integers(4, 12))
+        prompt = rng.integers(2, cfg.vocab_size, size=plen).astype(np.int32)
+        reqs.append(Request(rid=i, prompt=prompt, max_new=16))
+    rung = Recorded(MeasuredBackend(source=source, params={cfg.name: params},
+                                    log=log))
+    recon = Reconfigurator(
+        cfg, RECON_SHAPE, policy=ReconfigPolicy(),
+        ga=GAConfig(population=6, generations=2), node="drift0",
+        verifier_factory=lambda: Verifier(cfg, RECON_SHAPE, mode="analytic",
+                                          backends={"measured": rung}))
+    gov = PowerGovernor(recon, plan=model.plan,
+                        policy=GovernorPolicy(flush_every=2,
+                                              checkpoint_every=4),
+                        verify_rung="measured")
+    node = Node.build("drift0", model, params, slots=8, max_seq=256,
+                      source=ReplaySource([(0.0, DRIFT_WATTS[0])]),
+                      governor=gov)
+    for r in reqs:
+        node.submit(r)
+    node.loop.step()
+    dec = node.meter.ledger.phases["decode"]
+    step_s = dec.seconds / dec.count
+    t_step = node.meter.now + (DRIFT_AFTER - 1) * step_s
+    node.meter.source = ReplaySource([(0.0, DRIFT_WATTS[0]),
+                                      (t_step, DRIFT_WATTS[1])])
+    node.loop.run()
+    torch.cuda.synchronize()
+    wall_b = time.perf_counter() - t1
+    if sorted(r.rid for r in node.loop.finished) != list(range(8)):
+        raise RuntimeError("fleet drift: not every request finished")
+    if len(gov.events) != 1:
+        raise RuntimeError(
+            f"fleet drift: {len(gov.events)} migrations judged, not 1 "
+            f"({gov.events}); drift windows (s, Ws) "
+            f"{gov.monitor('drift0').ledger.steps}, busy "
+            f"{node.meter.now:.4f} s, watts step at {t_step:.4f} s")
+    ev = gov.events[0]
+    if len(rung.trials) != 2:
+        raise RuntimeError(f"fleet drift: {len(rung.trials)} trials, not 2")
+    forced = sum(len(r.prompt) - 1 for r in reqs)
+    log(f"[fleet] drift run: watts {DRIFT_WATTS[0]:g} -> {DRIFT_WATTS[1]:g} "
+        f"W at {t_step:.4f} s of busy time (the first step's {forced} "
+        f"prompt steps and decode step, then {DRIFT_AFTER - 1} decode steps "
+        f"at {step_s:.5f} s); {node.loop.steps_done} steps in "
+        f"{wall_b:.3f} s")
+    log(f"[fleet] GovernorEvent: step {ev.step} (detected "
+        f"{ev.detected_step}), drift {ev.drift_ratio:.3f}x (window "
+        f"{ev.window_ws:.3f} Ws vs median {ev.median_ws:.3f} Ws) -> "
+        f"{'APPLIED' if ev.applied else 'REJECTED'} on the {ev.verify_rung} "
+        f"rung {ev.reject_reason}; new plan {ev.new_plan}; incumbent "
+        f"{ev.old_plan}")
+    drift = {"event": ev.to_dict(),
+             "trials": report_trials("[fleet] drift", rung.trials),
+             "wall_s": wall_b, "t_step_s": t_step, "step_s": step_s,
+             "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "plan_migrations": len(node.loop.plan_migrations)}
+    out = {"cli": cli, "drift": drift,
+           "budget_ws": FLEET_BUDGET_WS,
+           "wall_s": time.perf_counter() - t0}
+    log(f"[fleet] phase: {out['wall_s']:.1f} s; peak device memory "
+        f"{cli['peak_gb']:.2f} GB (cli), {drift['peak_gb']:.2f} GB (drift "
+        f"run and its trials)")
+    log("fleet " + json.dumps(out))
+    return out
+
+
 def run_path(arch: str, counters: dict, seeds=(0,), before=None,
              after=None) -> dict:
     """One model's path under the offload plan: its weights on the card,
@@ -1248,6 +1504,19 @@ def run_path(arch: str, counters: dict, seeds=(0,), before=None,
             "wall_s": wall_s, "prefill_s": prefill["prefill_s"]}
 
 
+def run_fleet(model, params, source, counters: dict) -> dict:
+    """The fleet phase as a path of its own: the launch counts set to 0
+    just before it and read just after; swiglu must have launched."""
+    for k in counters.values():
+        k.launches = 0
+    phase_fleet(model, params, source)
+    launches = {name: k.launches for name, k in counters.items()}
+    log("kernels fleet " + json.dumps(launches))
+    if not launches["swiglu"]:
+        raise RuntimeError(f"fleet: swiglu never launched ({launches})")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1283,7 +1552,11 @@ def main() -> int:
             else None)
         for name, n in path["launches"].items():
             launches[name] += n
-        if arch == "qwen2-7b":          # outside the counted path
+        if qwen:
+            fleet = run_fleet(path["model"], path["params"], source,
+                              counters)
+            for name, n in fleet.items():
+                launches[name] += n
             profile_serve(path["model"], path["params"], path["wall_s"])
         if arch == "mamba2-1.3b":
             profile_prefill(path["model"], path["params"], path["prefill_s"])

@@ -13,7 +13,7 @@ the hand-written CUDA kernel (its plain version on CPU tensors).
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field, replace
+from dataclasses import dataclass, field, fields, replace
 from typing import Any, Optional
 
 # ---------------------------------------------------------------------------
@@ -60,6 +60,12 @@ class PlanConfig:
 
     def replace(self, **kw: Any) -> "PlanConfig":
         return replace(self, **kw)
+
+    def describe(self) -> str:
+        """``field=value`` pairs in field order (the reference's format,
+        over the port's fields)."""
+        return ",".join(f"{f.name}={getattr(self, f.name)}"
+                        for f in fields(self))
 
 
 # ---------------------------------------------------------------------------

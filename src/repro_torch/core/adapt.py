@@ -1,6 +1,6 @@
 """The environment-adaptive flow (paper Fig. 1) on one card.
 
-Counterpart of ``repro.core.adapt``, Steps 1-3 and 6:
+Counterpart of ``repro.core.adapt``, Steps 1-3, 6 and 7:
 
   Step 1  Code analysis                -> site census (intensity/loop counts)
   Step 2  Offloadable-part extraction  -> plan genome space for the arch
@@ -13,10 +13,14 @@ Counterpart of ``repro.core.adapt``, Steps 1-3 and 6:
                                           rung: a real run on the card),
                                           reused from the search when a
                                           finalist ran on that rung
+  Step 7  In-operation reconfiguration -> ``Reconfigurator``: a runtime
+                                          monitor that re-searches when
+                                          the measured step energy drifts
+                                          (the serving side is
+                                          ``telemetry.governor``)
 
 Steps 4-5 at pod scale (slices of 64-512 chips) come with the sharding
-slice, Step 7's ``Reconfigurator`` with the serving governor (ROADMAP.md);
-``AdaptationReport.reconfigurator`` stays None until then.
+slice (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -30,7 +34,123 @@ from repro_torch.core.destinations import Requirement, SelectionLog, \
 from repro_torch.core.ga import GAConfig
 from repro_torch.core.intensity import site_census
 from repro_torch.core.plan import PlanGenome
+from repro_torch.core.power import H100
 from repro_torch.core.verifier import RungPolicy, Verifier
+from repro_torch.telemetry.dvfs import envelope_for
+from repro_torch.telemetry.energy import EnergyLedger
+
+
+# ---------------------------------------------------------------------------
+# Step 7 — in-operation reconfiguration
+# ---------------------------------------------------------------------------
+
+@dataclass
+class ReconfigPolicy:
+    degrade_factor: float = 1.5     # re-search when step energy drifts 1.5x
+    window: int = 16                # rolling baseline
+    cooldown_steps: int = 64        # min distance between reconfigs
+
+
+@dataclass
+class Reconfigurator:
+    """Runtime monitor: books each step into an ``EnergyLedger``; when the
+    step's Watt*seconds drift past the rolling median by the policy factor
+    (data drift, failing card, thermal throttle...), re-runs the offload
+    search and emits a new plan.  Energy is the trigger — a throttled card
+    that holds step time but burns boost watts still trips it — and when
+    the caller has no power meter, step energy defaults to
+    ``seconds x nominal_watts`` (the H100 envelope's active point unless
+    given) so pure time degradation drifts the ledger identically.
+
+    The caller swaps the plan at a checkpoint boundary (rebuild the model
+    under the new plan on the same weights): reconfiguration is a
+    checkpointed plan migration, not a live mutation.
+
+    ``derive_requirement`` controls the re-search's latency bound: when
+    True (``observe`` receives verifier-comparable per-step seconds) the
+    search must beat the rolling median step time; set it False when the
+    observed seconds live in another unit domain than the verifier's
+    (e.g. serving flush windows) — the search then selects purely on the
+    power-aware fitness.
+
+    The re-search runs on the verifier's *search* rung (one card,
+    analytic, unless ``verifier_factory`` says otherwise); the governor
+    that parks the resulting plan as a pending migration may re-verify it
+    on the measured rung before applying it (``rungs.governor``) — see
+    ``repro_torch.telemetry.governor.PowerGovernor``.
+    """
+    cfg: ArchConfig
+    shape_name: str
+    policy: ReconfigPolicy = field(default_factory=ReconfigPolicy)
+    ga: GAConfig = field(default_factory=lambda: GAConfig(population=6,
+                                                          generations=3))
+    verifier_factory: Optional[Callable] = None
+    ledger: EnergyLedger = field(default_factory=EnergyLedger)
+    nominal_watts: float = 0.0      # fallback W for un-metered steps
+    node: str = "node0"             # which serving node this monitor watches
+    derive_requirement: bool = True
+    events: list = field(default_factory=list)
+    _last_reconfig: int = -10**9
+
+    def __post_init__(self) -> None:
+        self.ledger.window = self.policy.window
+        if self.nominal_watts <= 0:
+            self.nominal_watts = envelope_for(H100).p_active
+
+    def make_verifier(self) -> Verifier:
+        """The verification environment this monitor re-searches in (and
+        the governor re-verifies pending migrations with): one card,
+        analytic, unless ``verifier_factory`` builds another."""
+        if self.verifier_factory is not None:
+            return self.verifier_factory()
+        return Verifier(self.cfg, self.shape_name, mode="analytic")
+
+    def for_node(self, node: str) -> "Reconfigurator":
+        """A fresh monitor for another serving node: same arch/policy/search
+        config, but its own rolling window, cooldown and event log — drift
+        is judged against the node's own history, not the fleet's."""
+        return Reconfigurator(self.cfg, self.shape_name, policy=self.policy,
+                              ga=self.ga,
+                              verifier_factory=self.verifier_factory,
+                              nominal_watts=self.nominal_watts, node=node,
+                              derive_requirement=self.derive_requirement)
+
+    def observe(self, step: int, seconds: float,
+                current_plan: PlanConfig,
+                energy_ws: Optional[float] = None) -> Optional[PlanConfig]:
+        """Returns a new plan when reconfiguration triggers, else None."""
+        if energy_ws is None:
+            energy_ws = seconds * self.nominal_watts
+        med_s = self.ledger.median_step_seconds()
+        med_ws = self.ledger.median_step_ws()
+        ratio = self.ledger.drift_ratio(energy_ws)
+        self.ledger.record_step(seconds, energy_ws)
+        if ratio is None or ratio <= self.policy.degrade_factor:
+            return None
+        if step - self._last_reconfig < self.policy.cooldown_steps:
+            return None
+        self._last_reconfig = step
+        v = self.make_verifier()
+        shape = get_shape(self.shape_name)
+        req = Requirement(max_seconds=med_s) \
+            if self.derive_requirement and med_s is not None else None
+        sel = select_destination(self.cfg, shape.kind, v, req, self.ga)
+        new_plan = sel.chosen.genome.to_plan()
+        self.events.append({"step": step, "node": self.node,
+                            "seconds": seconds,
+                            "median": med_s,
+                            "energy_ws": energy_ws,
+                            "median_ws": med_ws,
+                            "drift_ratio": ratio,
+                            "new_plan": new_plan.describe(),
+                            "stage": sel.chosen.name})
+        self.ledger.reset_steps()
+        return new_plan
+
+
+# ---------------------------------------------------------------------------
+# The whole flow (Fig. 1)
+# ---------------------------------------------------------------------------
 
 
 @dataclass
@@ -41,7 +161,7 @@ class AdaptationReport:
     slices: list = field(default_factory=list)          # step 4
     placement: dict = field(default_factory=dict)       # step 5
     verified: Optional[dict] = None                     # step 6
-    reconfigurator: Optional[object] = None             # step 7
+    reconfigurator: Optional[Reconfigurator] = None     # step 7
     plan: Optional[PlanConfig] = None
     chips: int = 0
 
@@ -64,7 +184,7 @@ def adapt(cfg: ArchConfig, shape_name: str,
           rungs: Optional[RungPolicy] = None,
           backends: Optional[dict] = None,
           log: Optional[Callable[[str], None]] = None) -> AdaptationReport:
-    """Run Steps 1-3 and 6 for (arch, shape) on one card.
+    """Run Steps 1-3, 6 and 7 for (arch, shape) on one card.
 
     ``rungs`` selects the measurement rung per consumer (see
     ``repro_torch.core.verifier.RungPolicy``): Step 3's GA searches on
@@ -72,7 +192,8 @@ def adapt(cfg: ArchConfig, shape_name: str,
     ``rungs.finalist``, and Step 6's smoke trial runs on ``rungs.smoke``,
     entered only when ``verify=True``.  ``backends`` maps a rung to its
     backend instance (e.g. a ``MeasuredBackend`` holding loaded weights);
-    Steps 3 and 6 share them."""
+    Steps 3 and 6 share them.  The returned reconfigurator re-searches on
+    the same ladder, with the same backends."""
     rep = AdaptationReport()
     shape = get_shape(shape_name)
     rungs = rungs or RungPolicy()
@@ -115,4 +236,10 @@ def adapt(cfg: ArchConfig, shape_name: str,
         if log:
             log(f"step 6 [{rungs.smoke}]: "
                 f"{'OK' if m6.ok else 'FAIL ' + m6.error[:60]}")
+    # 7: hand back the runtime reconfigurator (same verification ladder)
+    rep.reconfigurator = Reconfigurator(
+        cfg, shape_name,
+        verifier_factory=lambda: Verifier(cfg, shape_name, mode=rungs.search,
+                                          rungs=rungs,
+                                          backends=dict(backends)))
     return rep

@@ -1,18 +1,44 @@
-"""``repro_torch.obs`` — spans and metrics behind one module-level switch.
+"""``repro_torch.obs`` — zero-dependency observability for the fleet.
 
-Counterpart of ``repro.obs`` (spans + metrics; joule attribution, exporters
-and the flight recorder wait for the observability slice).  Instrumented
-sites read ``obs.TRACER`` / ``obs.METRICS`` (no-op singletons) and guard on
-``.enabled``, so the serving hot path pays one attribute check per edge
-when tracing is off.  ``enable()`` swaps live instances in for the whole
-process.
+Counterpart of ``repro.obs``.  Three layers over one module-level switch:
+
+  * **spans** (``repro_torch.obs.span``) — nestable timed windows on
+    per-node timelines, emitted at every lifecycle edge (admission,
+    routing, queue-wait/prefill/decode, governor flush/migrate, power
+    gate/wake/probation/canary);
+  * **metrics** (``repro_torch.obs.metrics``) — counters, gauges and
+    mergeable fixed-bucket histograms (``queue_wait_s``,
+    ``decode_ws_per_token``, ...), exported as Prometheus text + JSON;
+  * **joule attribution** (``repro_torch.obs.attribution``) — the join
+    pass mapping ledger ``(node, tenant, phase)`` cells onto overlapping
+    spans so every span carries ``attributed_ws`` and the trace sums to
+    ``ledger.total_ws`` per node.
+
+Everything is off by default: instrumented sites read ``obs.TRACER`` /
+``obs.METRICS`` (no-op singletons) and guard on ``.enabled``, so the
+serving hot path pays one attribute check per edge when tracing is off.
+``enable()`` swaps live instances in for the whole process; exporters
+(``write_chrome_trace``, ``write_spans_jsonl``) render what they
+collected, in the reference's formats.  The reference's flight recorder
+rides its vectorized fleet engines and comes with them (ROADMAP.md).
 """
+from repro_torch.obs.attribution import (AttributionResult,  # noqa: F401
+                                         SampledAttribution,
+                                         attribute_joules,
+                                         attribute_joules_sampled)
+from repro_torch.obs.export import (chrome_trace_events,  # noqa: F401
+                                    read_chrome_trace, read_spans_jsonl,
+                                    write_chrome_trace, write_spans_jsonl)
 from repro_torch.obs.metrics import (DEFAULT_BUCKETS, QUANTILES, Counter,
                                      Gauge, Histogram, MetricsRegistry,
                                      NullMetrics)
 from repro_torch.obs.span import FLEET_ROW, NullTracer, Span, Tracer
 
 __all__ = [
+    "AttributionResult", "SampledAttribution", "attribute_joules",
+    "attribute_joules_sampled",
+    "chrome_trace_events", "read_chrome_trace", "read_spans_jsonl",
+    "write_chrome_trace", "write_spans_jsonl",
     "DEFAULT_BUCKETS", "QUANTILES", "Counter", "Gauge", "Histogram",
     "MetricsRegistry", "NullMetrics",
     "FLEET_ROW", "NullTracer", "Span", "Tracer",
@@ -45,6 +71,7 @@ def enable(clock=None, maxlen: int = 200_000):
 
 
 def disable() -> None:
-    """Back to the no-op instruments."""
+    """Back to the no-op instruments (instrumentation cost: one attribute
+    check per edge)."""
     set_tracer(None)
     set_metrics(None)

@@ -1,22 +1,34 @@
 """Span tracing — nestable timed windows on named per-node timelines.
 
-The part of ``repro.obs.span`` the serving loop uses (context-managed
-scopes, bulk appends and exporters wait for the observability slice).  A
-``Span`` is one window on one node's timeline: a name, start/end seconds, a
-tag dict, and an optional parent id.  ``Tracer.begin`` opens spans whose
-edges the *caller* times — the serving instrumentation stamps them with the
-node meter's cumulative busy-time clock (``meter.now``) so span windows line
-up exactly with the Watt*second bookings they describe.
+Copy of ``repro.obs.span`` (jax-free in the reference, copied so the port
+imports nothing of ``repro``).  A ``Span`` is one window on one node's
+timeline: a name, start/end seconds, a tag dict, and an optional parent
+id.  The ``Tracer`` hands them out two ways:
 
-``extend(t1, ws=...)`` grows an open span and accumulates a ``ws`` tag.
+  * ``begin``/``finish`` for spans whose edges the *caller* times — the
+    serving instrumentation stamps spans with the node meter's
+    cumulative busy-time clock (``meter.now``) so span windows line up
+    exactly with the Watt*second bookings they describe;
+  * the ``span()`` context manager for control-plane scopes on the
+    tracer's own monotonic clock, with automatic parent nesting.
+
+``extend(t1, ws=...)`` grows an open span and accumulates a ``ws`` tag —
+the Watt*seconds this span's window booked, which the joule-attribution
+pass (``repro_torch.obs.attribution``) uses as the exact distribution
+weight.
+
 Instrumented call sites go through the module-level
 ``repro_torch.obs.TRACER`` (a ``NullTracer`` by default), guarded by
 ``.enabled`` — the hot path pays one attribute check when tracing is off.
+Dependency-free.
 """
 from __future__ import annotations
 
+import json
 import time
+from contextlib import contextmanager
 from dataclasses import dataclass, field
+from pathlib import Path
 from typing import Optional
 
 FLEET_ROW = "fleet"     # default timeline for control-plane spans
@@ -32,6 +44,7 @@ class Span:
     span_id: int = 0
     parent_id: Optional[int] = None
     tags: dict = field(default_factory=dict)
+    attributed_ws: float = 0.0      # filled by the attribution join pass
 
     @property
     def open(self) -> bool:
@@ -59,6 +72,28 @@ class Span:
             self.t1 = self.t0
         return self
 
+    def contains(self, other: "Span") -> bool:
+        """Whether ``other``'s window nests inside this span's."""
+        end = self.t0 if self.t1 is None else self.t1
+        o_end = other.t0 if other.t1 is None else other.t1
+        return self.t0 <= other.t0 and o_end <= end
+
+    def to_dict(self) -> dict:
+        return {"name": self.name, "node": self.node,
+                "t0": self.t0, "t1": self.t0 if self.t1 is None else self.t1,
+                "span_id": self.span_id, "parent_id": self.parent_id,
+                "tags": dict(self.tags),
+                "attributed_ws": self.attributed_ws}
+
+    @classmethod
+    def from_dict(cls, doc: dict) -> "Span":
+        return cls(name=doc["name"], node=doc.get("node", FLEET_ROW),
+                   t0=float(doc["t0"]), t1=float(doc["t1"]),
+                   span_id=int(doc.get("span_id", 0)),
+                   parent_id=doc.get("parent_id"),
+                   tags=dict(doc.get("tags", {})),
+                   attributed_ws=float(doc.get("attributed_ws", 0.0)))
+
 
 class Tracer:
     """Collects spans; bounded so a runaway loop cannot eat the host."""
@@ -71,11 +106,15 @@ class Tracer:
         self.spans: list[Span] = []
         self.dropped = 0            # spans past maxlen (counted, not kept)
         self._next_id = 1
+        self._stack: list[Span] = []    # context-manager nesting
 
     def begin(self, name: str, *, node: str = FLEET_ROW,
               t0: Optional[float] = None, parent: Optional[Span] = None,
               tags: Optional[dict] = None) -> Span:
-        """Open a span; the caller closes it via ``finish``/``extend``."""
+        """Open a span; the caller closes it via ``finish``/``extend``.
+        ``parent=None`` inherits the innermost context-managed span."""
+        if parent is None and self._stack:
+            parent = self._stack[-1]
         sp = Span(name=name, node=node,
                   t0=self.clock() if t0 is None else t0,
                   span_id=self._next_id,
@@ -87,6 +126,49 @@ class Tracer:
         else:
             self.dropped += 1
         return sp
+
+    def instant(self, name: str, *, node: str = FLEET_ROW,
+                t: Optional[float] = None,
+                tags: Optional[dict] = None) -> Span:
+        """A zero-length marker span (lifecycle edges: route, flush...)."""
+        return self.begin(name, node=node, t0=t, tags=tags).finish()
+
+    @contextmanager
+    def span(self, name: str, *, node: str = FLEET_ROW,
+             tags: Optional[dict] = None):
+        """Scope a span on the tracer's clock; children opened inside the
+        ``with`` body nest under it automatically."""
+        sp = self.begin(name, node=node, tags=tags)
+        self._stack.append(sp)
+        try:
+            yield sp
+        finally:
+            self._stack.pop()
+            sp.finish(self.clock())
+
+    def add_spans(self, spans) -> int:
+        """Bulk append: assign ids and store a whole batch of caller-built
+        ``Span`` objects in one tracer call (the vectorized engines emit
+        per-(node, phase) aggregates and sampled request trees this way
+        instead of one ``begin`` per span).  Spans arriving with
+        ``span_id == 0`` get fresh ids; parent links set by the caller
+        are kept.  Returns how many were stored (the rest are counted in
+        ``dropped``)."""
+        stored = 0
+        for sp in spans:
+            if sp.span_id == 0:
+                sp.span_id = self._next_id
+                self._next_id += 1
+            if len(self.spans) < self.maxlen:
+                self.spans.append(sp)
+                stored += 1
+            else:
+                self.dropped += 1
+        return stored
+
+    def to_jsonl(self, path) -> str:
+        from repro_torch.obs.export import write_spans_jsonl
+        return write_spans_jsonl(self.spans, path)
 
 
 _NULL_SPAN = Span(name="", t0=0.0)
@@ -105,3 +187,26 @@ class NullTracer:
     def begin(self, name: str, **kw) -> Span:
         return _NULL_SPAN
 
+    def instant(self, name: str, **kw) -> Span:
+        return _NULL_SPAN
+
+    def add_spans(self, spans) -> int:
+        return 0
+
+    @contextmanager
+    def span(self, name: str, **kw):
+        yield _NULL_SPAN
+
+    def to_jsonl(self, path) -> str:
+        Path(path).write_text("")
+        return str(path)
+
+
+def load_spans_jsonl(path) -> list[Span]:
+    """Read a spans JSONL file back (inverse of ``Tracer.to_jsonl``)."""
+    spans = []
+    for line in Path(path).read_text().splitlines():
+        line = line.strip()
+        if line:
+            spans.append(Span.from_dict(json.loads(line)))
+    return spans

@@ -15,14 +15,21 @@ the device's work and not the host's enqueue time.
 
 ``park()`` stops the loop taking new work and ``drain()`` evicts its queue
 and active slots as resumable requests (a resubmitted request
-teacher-forces prompt+output through the new loop's cache).  The
-reference's power governor hook waits for the fleet slice.
+teacher-forces prompt+output through the new loop's cache).
+
+Pass a ``repro_torch.telemetry.governor.PowerGovernor`` too and the loop
+closes the paper's Step-7 circuit under serving traffic: every
+``governor.policy.flush_every`` steps the meter's fresh energy rolls into
+the shared fleet ledger and the node's drift monitor; at checkpoint
+boundaries a drift-triggered plan migration is judged and, when applied,
+recorded in ``plan_migrations`` (rebuilding the model under the new plan
+is the caller's checkpointed swap, as in the reference).
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Callable, Optional
+from typing import Any, Callable, Optional
 
 import numpy as np
 import torch
@@ -71,6 +78,7 @@ class ServeLoop:
     def __init__(self, model: Model, params, batch_slots: int, max_seq: int,
                  eos_id: int = 1,
                  meter: Optional[DecodeEnergyMeter] = None,
+                 governor: Optional[Any] = None,
                  node: Optional[str] = None,
                  clock: Callable[[], float] = time.perf_counter,
                  device: DeviceLike = None):
@@ -84,6 +92,7 @@ class ServeLoop:
         self.max_seq = max_seq
         self.eos = eos_id
         self.meter = meter
+        self.governor = governor
         # node label precedence: an explicit argument re-tags the meter; a
         # configured meter otherwise keeps (and lends the loop) its own
         if node is None:
@@ -96,6 +105,7 @@ class ServeLoop:
         self.queue: list[Request] = []
         self.active: list[Optional[Request]] = [None] * batch_slots
         self.finished: list[Request] = []
+        self.plan_migrations: list = []     # (step, new_plan) from governor
         self.steps_done = 0
         self._t_mark: Optional[float] = None    # last step's clock reading
         self.parked = False                 # a parked loop takes no new work
@@ -281,6 +291,8 @@ class ServeLoop:
                               "ws": 0.0})
                 self._idle_span.extend(t1, ws=ws)
         self.steps_done += 1
+        if self.governor is not None and self.meter is not None:
+            self.governor.tick(self.meter, self.steps_done, node=self.node)
         return 0
 
     def step(self) -> int:
@@ -346,6 +358,13 @@ class ServeLoop:
             else:
                 n_active += 1
         self.steps_done += 1
+        if self.governor is not None and self.meter is not None:
+            new_plan = self.governor.tick(self.meter, self.steps_done,
+                                          node=self.node)
+            if new_plan is not None:
+                # checkpointed migration: the caller rebuilds its model
+                # under the new plan; the loop records that it fired
+                self.plan_migrations.append((self.steps_done, new_plan))
         return n_active
 
     def run(self, max_steps: int = 10_000) -> list[Request]:
@@ -356,4 +375,10 @@ class ServeLoop:
                 break
             self.step()
         self._close_idle()
+        if self.governor is not None and self.meter is not None:
+            # drain trailing un-flushed energy so the fleet ledger totals
+            # match the meter at run end; govern=False keeps the partial
+            # tail window out of the drift median
+            self.governor.flush(self.meter, self.steps_done, node=self.node,
+                                govern=False)
         return self.finished[n0:]

@@ -1,0 +1,168 @@
+"""The port's serving CLI (``python -m repro_torch.launch.serve``).
+
+Runs the object engine on the CPU at tiny-test (``--device cpu``) with
+two nodes, governors, consolidate-and-gate placement and per-tenant
+admission, and renders what it persisted through the reference's jax-free
+``scripts/power_report.py --ledger`` and ``scripts/trace_report.py``.  The
+flags of engines not ported yet are refused, and without ``--device`` the
+CLI needs a card.
+"""
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro.telemetry import EnergyLedger as JEnergyLedger
+from repro_torch.configs import CARD_SHAPES, ShapeSpec, get_config
+from repro_torch.core.backends import MeasuredBackend
+from repro_torch.launch import serve
+from repro_torch.models.model import Model
+from repro_torch.obs import read_spans_jsonl
+from repro_torch.telemetry import ConstantSource, EnergyLedger
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def _argv(tmp_path, *extra):
+    return ["--arch", "tiny-test", "--fleet", "2", "--slots", "2",
+            "--requests", "8", "--max-new", "6", "--tenants", "teamA,teamB",
+            "--admission", "teamB=0.5", "--admission-window", "64",
+            "--arrival-every", "2", "--placement", "gate", "--govern",
+            "--flush-every", "2", "--checkpoint-every", "4",
+            "--ledger-out", str(tmp_path / "fleet.json"),
+            "--trace-spans", str(tmp_path / "trace.json"),
+            "--metrics-out", str(tmp_path / "metrics.prom"),
+            "--trace-out", str(tmp_path / "node0.jsonl"),
+            "--device", "cpu", *extra]
+
+
+@pytest.fixture
+def cli_run(tmp_path, capsys):
+    from repro_torch import obs
+    try:
+        out = serve.main(_argv(tmp_path))
+    finally:
+        obs.disable()
+    return out, capsys.readouterr().out, tmp_path
+
+
+def test_cli_serves_a_governed_gated_fleet_on_the_cpu(cli_run):
+    out, text, tmp_path = cli_run
+    sched, finished = out["sched"], out["finished"]
+    assert out["admission"].rejections, "teamB's budget must throttle"
+    rejected = {r.rid for r in out["admission"].rejections}
+    assert {r.rid for r in finished} | rejected == set(range(8))
+    assert all(1 <= len(r.out) <= 6 for r in finished)
+    vocab = get_config("tiny-test").vocab_size
+    assert all(0 <= t < vocab for r in finished for t in r.out)
+    # the bills: requests + the infra tenant's idle floors = the ledger
+    infra = sched.ledger.rollup("tenant").get("fleet")
+    billed = sum(r.energy_ws for r in finished) + (infra.ws if infra else 0)
+    assert billed == pytest.approx(sched.ledger.total_ws, rel=1e-9)
+    for by in ("node", "tenant", "phase"):
+        assert sum(pe.ws for pe in sched.ledger.rollup(by).values()) == \
+            pytest.approx(sched.ledger.total_ws, rel=1e-9)
+    assert all(n.governor is not None for n in out["nodes"])
+    assert out["planner"] is not None
+    rows = out["attribution"].conservation(sched.ledger)
+    assert rows and all(r["ok"] for r in rows.values())
+    for line in ("req 0: tenant=teamA", "THROTTLED", "\nserved ",
+                 "fleet: total=", "node node0: served=", "admission teamB:",
+                 "placement[gate]: states=", "ledger -> ", "trace  -> ",
+                 "attribution node0:", "spans  -> ", "metrics -> ",
+                 "queue_wait_s p50="):
+        assert line in text, line
+    assert "DRIFT" not in text
+
+
+def test_cli_files_render_through_the_references_scripts(cli_run):
+    out, _, tmp_path = cli_run
+    ledger = tmp_path / "fleet.json"
+    total = out["sched"].ledger.total_ws
+    assert EnergyLedger.from_json(ledger).total_ws == \
+        pytest.approx(total, rel=1e-12)
+    assert JEnergyLedger.from_json(ledger).total_ws == \
+        pytest.approx(total, rel=1e-12)
+    r = subprocess.run([sys.executable,
+                        str(ROOT / "scripts" / "power_report.py"),
+                        "--ledger", str(ledger)],
+                       capture_output=True, text=True)
+    assert r.returncode == 0, r.stderr
+    assert "by tenant:" in r.stdout and "teamA" in r.stdout
+    spans = tmp_path / "trace.spans.jsonl"
+    assert len(read_spans_jsonl(spans)) > 20
+    for path in (tmp_path / "trace.json", spans):
+        r = subprocess.run([sys.executable,
+                            str(ROOT / "scripts" / "trace_report.py"),
+                            "--trace", str(path), "--metrics",
+                            str(tmp_path / "metrics.prom")],
+                           capture_output=True, text=True)
+        assert r.returncode == 0, r.stderr
+        assert "attributed Ws by phase" in r.stdout
+        assert 'queue_wait_s{quantile="0.99"}' in r.stdout
+
+
+@pytest.mark.parametrize("flag", [["--engine", "vector"],
+                                  ["--engine", "vector-seg"],
+                                  ["--verify-rung", "compiled"],
+                                  ["--trace-sample", "0.5"],
+                                  ["--flight-log", "f.jsonl"]])
+def test_cli_refuses_what_is_not_ported(tmp_path, flag):
+    with pytest.raises(SystemExit):
+        serve.parser().parse_args(_argv(tmp_path, *flag))
+
+
+def test_cli_needs_a_card_without_device(tmp_path, monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    argv = [a for a in _argv(tmp_path) if a not in ("--device", "cpu")]
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(argv)
+
+
+def test_parsers_match_the_references():
+    from repro.launch import serve as jserve
+    assert serve.parse_diurnal("1:3:1,10:2:4") == \
+        jserve.parse_diurnal("1:3:1,10:2:4") == [1, 2, 3, 10, 14]
+    with pytest.raises(ValueError):
+        serve.parse_diurnal("1:0:1")
+    got = serve.parse_budgets("teamA=2.5, teamB=0.8", 16)
+    want = jserve.parse_budgets("teamA=2.5, teamB=0.8", 16)
+    assert {k: (b.budget_ws, b.window_steps) for k, b in got.items()} == \
+        {k: (b.budget_ws, b.window_steps) for k, b in want.items()}
+    with pytest.raises(ValueError):
+        serve.parse_budgets("teamA", 0)
+    args = serve.parser().parse_args([])
+    assert (args.recon_shape, args.engine, args.device) == \
+        ("decode_32k_b8", "object", None)
+
+
+def test_run_serves_on_the_callers_weights_with_a_measured_governor(
+        monkeypatch, tmp_path, capsys):
+    """The library entry on weights the caller holds: every node's
+    governor re-verifies through one verifier on the measured backend it
+    is given (its trials, if drift trips, run at the recon shape)."""
+    monkeypatch.setitem(CARD_SHAPES, "cpu_decode",
+                        ShapeSpec("cpu_decode", 48, 2, "decode"))
+    cfg = get_config("tiny-test")
+    model = Model(cfg, cfg.plan.replace(mlp_impl="pallas"), device="cpu")
+    params = model.init(torch.Generator().manual_seed(3))
+    args = serve.parser().parse_args(
+        ["--fleet", "2", "--slots", "2", "--requests", "4", "--max-new",
+         "4", "--govern", "--verify-rung", "measured", "--recon-shape",
+         "cpu_decode", "--flush-every", "1", "--checkpoint-every", "2"])
+    measured = MeasuredBackend(device="cpu", source=ConstantSource(200.0),
+                               params={cfg.name: params}, window_s=0.05,
+                               decode_steps=4)
+    out = serve.run(args, model=model, params=params, measured=measured)
+    assert len(out["finished"]) == 4
+    for node in out["nodes"]:
+        gov = node.governor
+        assert gov.plan == model.plan and gov.verify_rung == "measured"
+        assert gov._verifier.backend("measured") is measured
+        for ev in gov.events:
+            assert ev.verify_rung == "measured"
+    # one card: the governors share one verifier and its trial cache
+    assert len({id(n.governor._verifier) for n in out["nodes"]}) == 1
+    assert "served 4 requests" in capsys.readouterr().out

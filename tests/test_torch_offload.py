@@ -712,7 +712,11 @@ def test_adapt_steps_1_to_3_and_6_on_the_cpu(small_shapes):
         "measured"
     assert rep.verified["launches"] == {"flash_attention": 0, "swiglu": 0,
                                         "ssd": 0, "rglru": 0}
-    assert rep.reconfigurator is None and rep.slices == []
+    # Step 7: the reconfigurator re-searches on the same ladder and rungs
+    assert rep.slices == []
+    assert rep.reconfigurator.shape_name == "cpu_prefill"
+    v7 = rep.reconfigurator.make_verifier()
+    assert v7.rungs.finalist == "measured" and v7.backend("measured") is rung
     assert rep.plan == rep.selection.chosen.genome.to_plan()
     assert any(line.startswith("step 6 [measured]: OK") for line in lines)
     assert "[measured]" in rep.summary()
