@@ -36,9 +36,13 @@ a non-zero exit and no result line:
               tensor-core kernels also the library call's error against
               the same plain version (the kernel's may be at most twice
               it), and both swiglu designs timed on either side of their
-              switch; plus reduced qwen2-7b, mamba2-1.3b and
-              recurrentgemma-9b on the card (kernels, f32) against the
-              plain path on the CPU;
+              switch; flash_attention and swiglu also at every shape
+              the seven new archs' paths give them (flash D 64, D 80
+              non-causal, D 160 and the groups 48:1, 128:8, 64:8, 16:16 at
+              D 128; swiglu at stablelm-12b's, llama3-405b's and
+              internvl2-76b's widths, at T 1024 and at a decode step's 2);
+              plus reduced qwen2-7b, mamba2-1.3b and recurrentgemma-9b on
+              the card (kernels, f32) against the plain path on the CPU;
   4. calibrate the card's idle draw and two kernel windows (swiglu T=1024,
               rglru S 2560) under the NVML sampler, and the energy
               constants solved from them beside the ones ``core.power.H100``
@@ -96,7 +100,27 @@ a non-zero exit and no result line:
   6. profile  qwen2-7b's 8 requests served again, and one bf16 prefill of
               mamba2-1.3b, under torch.profiler: kernels by device time,
               the CUDA runtime calls by host time, and the device's busy
-              share of each window.
+              share of each window;
+  7. archs    the seven archs of the MoE / LayerNorm / front-end slice
+              (granite-moe-1b-a400m, moonshot-v1-16b-a3b, granite-20b,
+              stablelm-12b, llama3-405b, internvl2-76b, hubert-xlarge) at
+              their published widths under the offload plan, one arch's
+              weights at a time, depth cut only where the published depth
+              does not fit in 80 GB (ARCH_LAYERS, logged as "layers L of
+              N"): a warm prefill of 2 x 512 tokens at the arch's own
+              config; prefill + 8 decode steps against the forward (bf16,
+              ARCH_TOL; internvl2-76b's prompt starts with 256 patch
+              embeddings); the MoE archs at capacity factor 16 in f32
+              (held, MOE_F32_TOL) and bf16 (read, with decode's argmax
+              agreement), with the share of assignments each layer drops
+              at the published 1.25; granite-moe-1b-a400m also serves 8
+              requests as in phase 5; every arch's bf16 offload forward
+              over 2 x 512 tokens (hubert-xlarge, an encoder: frames)
+              against its f32 stock-op forward (phase_forward: ARCH_TOL,
+              or BF16_GAP_SLACK x the stock-op bf16 forward's own error
+              where that is larger); each phase's peak device memory, its
+              launches (flash_attention on every arch, swiglu too on
+              stablelm-12b, llama3-405b and internvl2-76b) and seconds.
 
 Every window sampled from the card's NVML energy counter must agree with
 the counter's own difference over it within 5 %.  Kernel phase 3 also times
@@ -139,13 +163,25 @@ BF16_TOL = (1e-5, 2.0 ** -8)
 #: error against the same plain version.
 ROUND = 2.0 ** -9
 #: f32 sums of many products in another order on the tensor cores, as a
-#: share of the sum of |products| (readings sit near 2^-22)
+#: share of the sum of |products|, up to a sum over qwen2-7b's f (18944
+#: products); a deeper sum takes more accumulation steps, each of which may
+#: lose up to a unit in the last place, so its share grows in proportion.
+#: The second product's readings on the H100 at T=1024: 6.5e-7 at f 18944,
+#: 1.47e-6 at llama3-405b's f 53248 (PERF.md)
 SUM_ORDER = 2.0 ** -20
+SUM_DEPTH = 18944
+
+
+def sum_order(k: int) -> float:
+    """The sum-order allowance of a sum over ``k`` products."""
+    return SUM_ORDER * max(1.0, k / SUM_DEPTH)
+
+
 FLASH_TOL_TEXT = ("atol 2^-9 max|v| + 1e-5 + rtol 2^-8, vs the plain "
                   "version in f32")
 SWIGLU_TOL_TEXT = ("atol 2^-9 (|a| @ |wo|) + 1e-5 + rtol 2^-8, vs the plain "
                    "version in f32; a and y = a @ wo each at atol 2^-20 "
-                   "sum|products| + 1e-5 + rtol 2^-8")
+                   "max(1, K/18944) sum|products| + 1e-5 + rtol 2^-8")
 #: the bf16 kernels' error may be at most this multiple of the library's
 LIBRARY_ERR_FACTOR = 2.0
 
@@ -185,10 +221,52 @@ NO_LIBRARY = "none: no single PyTorch call computes it"
 #: the offload plan: every compute site on its kernel (bench_power.py)
 OFFLOAD = dict(attn_impl="pallas", mlp_impl="pallas", ssm_impl="pallas",
                rglru_impl="pallas")
-#: the kernels each model's path must launch
+#: the kernels each model's path must launch: the three models' paths,
+#: then the seven archs' phases (ARCH_LAYERS)
 PATH_KERNELS = {"qwen2-7b": ("mriq", "flash_attention", "swiglu"),
                 "mamba2-1.3b": ("ssd",),
-                "recurrentgemma-9b": ("flash_attention", "rglru")}
+                "recurrentgemma-9b": ("flash_attention", "rglru"),
+                "granite-moe-1b-a400m": ("flash_attention",),
+                "moonshot-v1-16b-a3b": ("flash_attention",),
+                "granite-20b": ("flash_attention",),
+                "stablelm-12b": ("flash_attention", "swiglu"),
+                "llama3-405b": ("flash_attention", "swiglu"),
+                "internvl2-76b": ("flash_attention", "swiglu"),
+                "hubert-xlarge": ("flash_attention",)}
+#: the three models driven through serving, Fig. 5, the search and the fleet
+MODEL_PATHS = ("qwen2-7b", "mamba2-1.3b", "recurrentgemma-9b")
+#: the seven archs of the MoE / LayerNorm / front-end slice at their
+#: published widths: the layers on the card, and where the published depth
+#: does not fit in 80 GB beside its activations, why it is cut (layers
+#: only; no cut config is registered)
+ARCH_LAYERS = {
+    "granite-moe-1b-a400m": (24, ""),
+    "moonshot-v1-16b-a3b": (24, "48 layers hold 112 GB of f32 weights"),
+    "granite-20b": (26, "52 layers hold 81.3 GB of f32 weights"),
+    "stablelm-12b": (40, ""),
+    "llama3-405b": (6, "126 layers hold 812 GB of bf16 weights"),
+    "internvl2-76b": (12, "80 layers hold 282 GB of f32 weights"),
+    "hubert-xlarge": (48, ""),
+}
+#: the dense archs' bf16 prefill and decode against the forward, and each
+#: arch's bf16 offload forward against its f32 stock-op forward (the floor
+#: of phase_forward's limits), as a share of max|logit|: the CPU twins'
+#: bf16 rule (tests/test_torch_model.py)
+ARCH_TOL = 0.05
+#: phase_forward: the offload forward's error against the f32 stock-op
+#: forward, at the median and the worst position, may be this multiple of
+#: the stock-op bf16 forward's own (the CPU twins' rule for the MoE archs
+#: takes the reference's bf16 gap as the limit; the kernels' roundings
+#: flip other router near-ties, so the worst position differs by some
+#: per cent either way)
+BF16_GAP_SLACK = 1.25
+#: the MoE archs' f32 prefill and decode against the forward (at capacity
+#: factor 16): mamba2-1.3b's f32 tolerance (PREFILL_TOL)
+MOE_F32_TOL = 0.025
+#: the MoE archs are held at this capacity factor: token-choice capacity is
+#: not causal, so with drops a prefill and a longer forward route
+#: differently (tests/test_decode_consistency.py raises it the same way)
+MOE_HELD_FACTOR = 16.0
 
 
 def log(msg: str) -> None:
@@ -470,15 +548,15 @@ def kernel_mriq(rows: dict) -> None:
 
 
 def flash_case(s: int, hq: int, hkv: int, d: int, window: int, seed: int,
-               reps: int) -> dict:
+               reps: int, causal: bool = True) -> dict:
     from repro_torch.kernels import flash_attention as K, ref
     b = 2
     g = torch.Generator(device="cuda").manual_seed(seed)
     q, k, v = (torch.randn((b, s, h, d), generator=g, device="cuda",
                            dtype=torch.float32).to(torch.bfloat16)
                for h in (hq, hkv, hkv))
-    got = K.flash_attention_cuda(q, k, v, True, window)
-    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), True,
+    got = K.flash_attention_cuda(q, k, v, causal, window)
+    want = ref.flash_attention_ref(q.float(), k.float(), v.float(), causal,
                                    window)
     err = check(f"flash_attention D={d}", got, want,
                 ROUND * float(v.float().abs().max()) + BF16_TOL[0],
@@ -489,29 +567,31 @@ def flash_case(s: int, hq: int, hkv: int, d: int, window: int, seed: int,
     kt = k.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
     vt = v.repeat_interleave(hq // hkv, dim=2).transpose(1, 2).contiguous()
     pos = torch.arange(s, device="cuda")
-    keep = pos[None, :] <= pos[:, None]
+    keep = pos[None, :] <= pos[:, None] if causal \
+        else torch.ones((s, s), dtype=torch.bool, device="cuda")
     if window:
         keep &= pos[:, None] - pos[None, :] < window
 
     def sdpa():
         if window:
             return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=keep)
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     sdpa_err = max_err(sdpa().transpose(1, 2), want)
     del want
     check_library(f"flash_attention D={d}", err, sdpa_err)
     pairs = int(keep.sum())     # (q, k) pairs the mask keeps
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * 2
     bnd = bound(4.0 * b * hq * d * pairs, PEAK_BF16, nbytes)
-    mask = "causal" + (f" window {window}" if window else "")
+    mask = ("causal" if causal else "non-causal") \
+        + (f" window {window}" if window else "")
     return {"max_abs_err": err, "tol": FLASH_TOL_TEXT,
             "design": "mma.sync m16n8k16 bf16, cp.async 2-stage K/V ring, "
                       + ("64 queries x 4 warps" if d <= 128
                          else "128 queries x 8 warps") + ", 64-key tiles",
-            "ms": graph_ms(lambda: K.flash_attention_cuda(q, k, v, True,
+            "ms": graph_ms(lambda: K.flash_attention_cuda(q, k, v, causal,
                                                           window), reps),
             "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(
-                q, k, v, True, window), reps),
+                q, k, v, causal, window), reps),
             **bnd,
             "library_ms": cuda_ms(sdpa, reps),
             "library": "F.scaled_dot_product_attention, KV repeated",
@@ -527,9 +607,9 @@ SWIGLU_DESIGNS = {
                "128x128x64, cp.async 4 stages, a in bf16 scratch"}
 
 
-def qwen_mlp(seed: int):
-    """qwen2-7b's MLP weights (d 3584, f 18944) in bf16 on the card."""
-    d, f = 3584, 18944
+def mlp_weights(seed: int, d: int = 3584, f: int = 18944):
+    """An MLP's weights in bf16 on the card, qwen2-7b's widths (d 3584,
+    f 18944) unless given."""
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(shape, scale):
@@ -539,9 +619,9 @@ def qwen_mlp(seed: int):
             randn((f, d), f ** -0.5), g)
 
 
-def swiglu_case(t: int, seed: int) -> dict:
+def swiglu_case(t: int, seed: int, d: int = 3584, f: int = 18944) -> dict:
     from repro_torch.kernels import swiglu as K, ref
-    wi, wg, wo, g = qwen_mlp(seed)
+    wi, wg, wo, g = mlp_weights(seed, d, f)
     d, f = wi.shape
     x = torch.randn((t, d), generator=g, device="cuda").to(torch.bfloat16)
     a_k = torch.empty((t, f), dtype=torch.bfloat16, device="cuda")
@@ -556,12 +636,17 @@ def swiglu_case(t: int, seed: int) -> dict:
     want = a @ wo32
     err = check(f"swiglu T={t}", got, want,
                 ROUND * (a.abs() @ wo32.abs()) + BF16_TOL[0], BF16_TOL[1])
-    err_a = check(f"swiglu T={t} a", a_k, a, SUM_ORDER * sums + BF16_TOL[0],
-                  BF16_TOL[1])
-    err_y = check(f"swiglu T={t} y vs a @ wo", got, a_k.float() @ wo32,
-                  SUM_ORDER * (a_k.float().abs() @ wo32.abs())
+    err_a = check(f"swiglu T={t} a", a_k, a, sum_order(d) * sums
                   + BF16_TOL[0], BF16_TOL[1])
-    del sums
+    want_y, sums_y = a_k.float() @ wo32, a_k.float().abs() @ wo32.abs()
+    err_y = check(f"swiglu T={t} y vs a @ wo", got, want_y,
+                  sum_order(f) * sums_y + BF16_TOL[0], BF16_TOL[1])
+    # the second product's sum-order error past y's own rounding, as a
+    # share of its sum of |products|
+    reading = float(((got.float() - want_y).abs()
+                     - BF16_TOL[1] * want_y.abs()).clamp(min=0).div(sums_y)
+                    .max())
+    del sums, want_y, sums_y
     del a, wo32, x32
     lib_err = max_err((F.silu(x @ wg) * (x @ wi)) @ wo, want)
     del want
@@ -571,6 +656,8 @@ def swiglu_case(t: int, seed: int) -> dict:
     reps = 20 if t <= K.DECODE_MAX_T else 5
     return {"max_abs_err": err, "tol": SWIGLU_TOL_TEXT,
             "a_max_abs_err": err_a, "y_vs_a_wo_max_abs_err": err_y,
+            "y_sum_order_reading": reading,
+            "y_sum_order_allowed": sum_order(f),
             "design": SWIGLU_DESIGNS[K.plan(t, d, f, x.dtype)["design"]],
             "ms": graph_ms(lambda: K.swiglu_cuda(x, wi, wg, wo), reps),
             "plain_ms": cuda_ms(lambda: ref.swiglu_ref(x, wi, wg, wo), reps),
@@ -583,6 +670,24 @@ def swiglu_case(t: int, seed: int) -> dict:
             "shape": f"T={t} d={d} f={f} bf16"}
 
 
+#: flash_attention at each of the seven archs' prefill shapes (arch, Hq,
+#: Hkv, D, causal): D 64, D 80 (padded into the 128-wide instance; an
+#: encoder, so non-causal), D 160 (the 256-wide instance) and the groups
+#: 48:1, 128:8, 64:8 and 16:16 at D 128
+NEW_FLASH_SHAPES = (("granite-moe-1b-a400m", 16, 8, 64, True),
+                    ("hubert-xlarge", 16, 16, 80, False),
+                    ("stablelm-12b", 32, 8, 160, True),
+                    ("granite-20b", 48, 1, 128, True),
+                    ("llama3-405b", 128, 8, 128, True),
+                    ("internvl2-76b", 64, 8, 128, True),
+                    ("moonshot-v1-16b-a3b", 16, 16, 128, True))
+#: swiglu at the widths of the archs whose path runs it (arch, d, f), each
+#: at the prefill's T (2 x 512) and a decode step's (2 sequences)
+NEW_SWIGLU_WIDTHS = (("stablelm-12b", 5120, 13824),
+                     ("llama3-405b", 16384, 53248),
+                     ("internvl2-76b", 8192, 28672))
+
+
 #: token counts at which both bf16 swiglu designs are timed: decode,
 #: prefill, and around the switch (swiglu.DECODE_MAX_T)
 SWITCH_T = (8, 32, 33, 64, 65, 128, 256, 1024)
@@ -592,7 +697,7 @@ def swiglu_designs() -> dict:
     """Both bf16 swiglu designs timed at each of SWITCH_T, at qwen2-7b's
     widths (the wrapper takes decode up to swiglu.DECODE_MAX_T)."""
     from repro_torch.kernels import swiglu as K
-    wi, wg, wo, g = qwen_mlp(8)
+    wi, wg, wo, g = mlp_weights(8)
     out = {}
     for t in SWITCH_T:
         x = torch.randn((t, wi.shape[0]), generator=g,
@@ -806,7 +911,7 @@ def swiglu_32k() -> dict:
     chain; the rows of ``rows_32k`` held against the plain version in f32
     and against the chain's error there, as ``swiglu_case`` holds y."""
     from repro_torch.kernels import swiglu as K
-    wi, wg, wo, g = qwen_mlp(12)
+    wi, wg, wo, g = mlp_weights(12)
     d, f = wi.shape
     t = PREFILL_32K
     x = torch.randn((t, d), generator=g, device="cuda").to(torch.bfloat16)
@@ -869,6 +974,15 @@ def phase_kernels() -> dict:
     rows["swiglu"] = swiglu_case(8, seed=2)
     rows["swiglu"]["prefill"] = swiglu_case(1024, seed=3)
     rows["swiglu"]["designs_ms"] = swiglu_designs()
+    # the prefill shapes of the seven archs' paths (2 x 512 tokens)
+    for arch, hq, hkv, d, causal in NEW_FLASH_SHAPES:
+        rows["flash_attention"][arch] = flash_case(512, hq, hkv, d, 0,
+                                                   seed=hq + d, reps=20,
+                                                   causal=causal)
+    for arch, d, f in NEW_SWIGLU_WIDTHS:
+        rows["swiglu"][arch] = swiglu_case(1024, seed=d, d=d, f=f)
+        rows["swiglu"][f"{arch} decode"] = swiglu_case(2, seed=d + 2, d=d,
+                                                       f=f)
     kernel_ssd(rows)
     kernel_rglru(rows)
     rows["flash_attention"]["prefill_32k"] = flash_32k()
@@ -884,7 +998,8 @@ def phase_kernels() -> dict:
             f"{rr['tol']}, library's {rr['library_max_abs_err']:.3e}")
     for name, r in rows.items():
         for label in ("", "prefill", "local", "forward", "f32",
-                      "f32_forward"):
+                      "f32_forward", *ARCH_LAYERS,
+                      *(f"{a} decode" for a in ARCH_LAYERS)):
             rr = r.get(label, r) if label else r
             if label and label not in r:
                 continue
@@ -900,6 +1015,10 @@ def phase_kernels() -> dict:
                 log(f"[kernels] {name} {label}: library max_err vs the plain "
                     f"version {rr['library_max_abs_err']:.3e}; design "
                     f"{rr.get('design', '')}")
+            if "y_sum_order_reading" in rr:
+                log(f"[kernels] {name} {label}: y vs a @ wo sum-order reading "
+                    f"{rr['y_sum_order_reading']:.3e} of sum|products| "
+                    f"(allowed {rr['y_sum_order_allowed']:.3e})")
     for label in SSD_CASES:
         rr = rows["ssd"][label] if label else rows["ssd"]
         log(f"[kernels] ssd {label or 'bf16'} vs the token-by-token "
@@ -909,7 +1028,7 @@ def phase_kernels() -> dict:
     log(f"[kernels] ssd f32 with slow decay vs the recurrence: max_err "
         f"{rows['ssd']['slow_decay_f32_max_abs_err']:.3e}; ssd and rglru "
         f"repeat bit for bit")
-    for arch in PATH_KERNELS:
+    for arch in MODEL_PATHS:
         err = small_model_check(arch)
         log(f"[kernels] reduced {arch} f32 logits, card (kernels) vs CPU "
             f"(plain): max_err {err:.3e} tol atol 1e-4 + rtol 1e-4")
@@ -958,18 +1077,26 @@ def init_weights(model, seed: int):
     return params
 
 
-def phase_prefill(model, params, held: bool = True) -> dict:
-    """Prefill, then 8 decode steps, against the teacher-forced forward;
-    ``held=False`` reads the errors and holds the logits to be finite."""
+def phase_prefill(model, params, held=True, tol_share=None) -> dict:
+    """Prefill, then 8 decode steps, against the teacher-forced forward,
+    at ``tol_share`` of max|logit| (default PREFILL_TOL); ``held=False``
+    reads the errors and holds the logits to be finite.  A vision arch's
+    prompt starts with its patch embeddings (random, seeded)."""
     cfg = model.cfg
-    b, s, n_dec = 2, PREFILL_LEN[cfg.name], 8
+    b, s, n_dec = 2, PREFILL_LEN.get(cfg.name, 512), 8
     rng = np.random.default_rng(1)
     toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (b, s + n_dec))
                             .astype(np.int32)).cuda()
+    extra = {}
+    if cfg.frontend == "vision_patches":
+        g = torch.Generator(device="cuda").manual_seed(2)
+        extra["patch_embeds"] = torch.randn(
+            (b, cfg.n_patches, cfg.d_model), generator=g, device="cuda")
     cache = model.init_cache(b, s + n_dec)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    last, cache = model.prefill(params, {"tokens": toks[:, :s]}, cache)
+    last, cache = model.prefill(params, {"tokens": toks[:, :s], **extra},
+                                cache)
     torch.cuda.synchronize()
     t_prefill = time.perf_counter() - t0
     steps = []
@@ -978,33 +1105,35 @@ def phase_prefill(model, params, held: bool = True) -> dict:
             params, {"tokens": toks[:, t:t + 1], "pos": t}, cache)
         steps.append(lg)
     dec = torch.stack(steps, dim=1)
-    full = model.forward(params, {"tokens": toks})
+    full = model.forward(params, {"tokens": toks, **extra})
     for name, t in (("forward", full), ("prefill", last), ("decode", dec)):
         if not torch.isfinite(t).all():
             raise RuntimeError(f"{cfg.name}: non-finite {name} logits")
     scale = float(full.abs().max())
+    tol = None
+    # roundings taken in another order along the residual layers (at
+    # prefill the kernels round P and a to bf16; decode attention runs the
+    # stock ops)
     if held:
-        # roundings taken in another order along the residual layers (at
-        # prefill the kernels round P and a to bf16; decode attention runs
-        # the stock ops)
-        tol = PREFILL_TOL[cfg.name] * scale
+        share = PREFILL_TOL[cfg.name] if tol_share is None else tol_share
+        tol = share * scale
         e_pre = check("prefill last logits vs forward", last,
                       full[:, s - 1], tol, 0.0)
         e_dec = check("decode logits vs forward", dec, full[:, s:], tol, 0.0)
-        held_by = f"tol {tol:.4f} = {PREFILL_TOL[cfg.name]} max|logit|"
+        held_by = f"tol {tol:.4f} = {share} max|logit|"
     else:
-        tol = None
         e_pre = max_err(last, full[:, s - 1])
         e_dec = max_err(dec, full[:, s:])
         held_by = "not held: finite only"
     agree = float((dec.argmax(-1) == full[:, s:].argmax(-1)).float().mean())
     out = {"prefill_s": t_prefill, "prefill_err": e_pre, "decode_err": e_dec,
            "logit_scale": scale, "tol": tol, "argmax_agree": agree}
-    log(f"[prefill] {cfg.name} full width, {model.plan.compute_dtype}, "
-        f"2x{s} tokens: prefill {t_prefill:.4f} s; max|logit| {scale:.3f}; "
-        f"prefill err {e_pre:.4f}, decode err {e_dec:.4f} = "
-        f"{max(e_pre, e_dec) / scale:.4f} max|logit| ({held_by}); decode "
-        f"argmax agrees with forward on {agree:.3f}")
+    log(f"[prefill] {cfg.name} full width, {cfg.n_layers} layers, "
+        f"{model.plan.compute_dtype}, 2x{s} tokens: prefill "
+        f"{t_prefill:.4f} s; max|logit| {scale:.3f}; prefill err "
+        f"{e_pre:.4f} = {e_pre / scale:.4f}, decode err {e_dec:.4f} = "
+        f"{e_dec / scale:.4f} max|logit| ({held_by}); decode argmax agrees "
+        f"with forward on {agree:.3f}")
     return out
 
 
@@ -1517,6 +1646,187 @@ def run_fleet(model, params, source, counters: dict) -> dict:
     return launches
 
 
+def moe_drops(model, params, toks) -> list:
+    """The share of its assignments each MoE layer drops at the config's
+    capacity factor, over one forward of ``toks`` (the router run again
+    on each layer's input beside the layer)."""
+    from repro_torch.models import layers as L
+    run, shares = L.run_moe, []
+
+    def counting(p, x, cfg, plan):
+        t = x.shape[0] * x.shape[1]
+        _, _, idx = L.moe_route(p, x.reshape(t, -1), cfg, plan)
+        _, keep = L.moe_slots(idx, cfg.moe.n_experts, L.moe_capacity(cfg, t))
+        shares.append(1.0 - float(keep.float().mean()))
+        return run(p, x, cfg, plan)
+    L.run_moe = counting
+    try:
+        model.forward(params, {"tokens": toks})
+    finally:
+        L.run_moe = run
+    return shares
+
+
+def arch_batch(cfg, toks) -> dict:
+    """A batch of ``toks``; a vision arch's prompt starts with its patch
+    embeddings (random, seeded)."""
+    batch = {"tokens": toks}
+    if cfg.frontend == "vision_patches":
+        g = torch.Generator(device="cuda").manual_seed(2)
+        batch["patch_embeds"] = torch.randn(
+            (toks.shape[0], cfg.n_patches, cfg.d_model), generator=g,
+            device="cuda")
+    return batch
+
+
+def timed_prefill(model, params, toks) -> float:
+    """Seconds of one warm prefill of ``toks`` at the model's own config
+    and plan (a vision arch's prompt starting with its patch embeddings),
+    after one untimed prefill."""
+    cfg = model.cfg
+    batch = arch_batch(cfg, toks)
+    seconds = []
+    for _ in range(2):
+        cache = model.init_cache(*toks.shape)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        last, _ = model.prefill(params, batch, cache)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+    if not torch.isfinite(last).all():
+        raise RuntimeError(f"{cfg.name}: non-finite prefill logits")
+    log(f"[arch] {cfg.name} prefill 2x{toks.shape[1]} tokens, "
+        f"{model.plan.compute_dtype}, its own config: {seconds[1]:.4f} s "
+        f"warm ({seconds[0]:.4f} s cold)")
+    return seconds[1]
+
+
+def phase_forward(model, params, batch) -> dict:
+    """The bf16 offload forward over ``batch`` against the f32 forward on
+    stock ops (naive attention, stock MLP, no kernel), by each position's
+    largest error as a share of max|logit|.  An encoder is held at
+    ARCH_TOL at every position.  Else the stock-op bf16 forward is read
+    too, and at the median position and the worst one the offload
+    forward's error may be at most BF16_GAP_SLACK times the stock one's,
+    or ARCH_TOL where that is larger: a bf16 rounding that flips a router's
+    expert is the model's own bf16 gap, kernels or not."""
+    cfg = model.cfg
+    model.forward(params, batch)                        # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = model.forward(params, batch)
+    torch.cuda.synchronize()
+    t_fwd = time.perf_counter() - t0
+    stock = model.plan.replace(attn_impl="xla", mlp_impl="xla")
+    want = model.with_plan(stock.replace(compute_dtype="float32")).forward(
+        params, batch).float()
+    if not torch.isfinite(got).all():
+        raise RuntimeError(f"{cfg.name}: non-finite forward logits")
+    scale = float(want.abs().max())
+
+    def spread(x) -> tuple:
+        e = (x.float() - want).abs().amax(-1).flatten() / scale
+        return float(e.median()), float(e.max())
+    med, top = spread(got)
+    out = {"forward_s": t_fwd, "median_err": med, "max_err": top,
+           "logit_scale": scale,
+           "argmax_agree": float((got.argmax(-1) == want.argmax(-1))
+                                 .float().mean())}
+    if cfg.is_encoder:
+        limits = (ARCH_TOL, ARCH_TOL)
+        rule = f"tol {ARCH_TOL}"
+    else:
+        out["stock_median_err"], out["stock_max_err"] = spread(
+            model.with_plan(stock).forward(params, batch))
+        limits = (max(ARCH_TOL, BF16_GAP_SLACK * out["stock_median_err"]),
+                  max(ARCH_TOL, BF16_GAP_SLACK * out["stock_max_err"]))
+        rule = (f"stock-op bf16 forward's median {out['stock_median_err']:.4f}"
+                f" and max {out['stock_max_err']:.4f}; tol max({ARCH_TOL}, "
+                f"{BF16_GAP_SLACK} x stock's)")
+    unit = "frames" if cfg.is_encoder else "tokens"
+    n = batch["features" if cfg.is_encoder else "tokens"].shape[1]
+    log(f"[arch] {cfg.name} forward 2x{n} {unit}, bfloat16 offload plan: "
+        f"{t_fwd:.4f} s; vs the f32 stock-op forward, by position: median "
+        f"{med:.4f}, max {top:.4f} max|logit| ({rule}: {limits[0]:.4f}, "
+        f"{limits[1]:.4f}); max|logit| {scale:.3f}; argmax agrees on "
+        f"{out['argmax_agree']:.3f}")
+    if med > limits[0] or top > limits[1]:
+        raise RuntimeError(f"{cfg.name}: bf16 offload forward vs the f32 "
+                           f"stock-op forward: median {med:.4f}, max "
+                           f"{top:.4f} over {limits[0]:.4f}, {limits[1]:.4f}")
+    return out
+
+
+def run_arch(arch: str, counters: dict, smi: str) -> dict:
+    """One arch of the MoE / LayerNorm / front-end slice at its published
+    width under the offload plan, its depth cut as ARCH_LAYERS says:
+    random weights (seed 0) on the card, then its checks: the bf16
+    forward against the f32 stock-op forward (phase_forward); unless an
+    encoder, a warm prefill, and prefill + decode against the forward (a
+    MoE arch: the drops at its capacity factor, prefill + decode at
+    MOE_HELD_FACTOR held in f32 and read in bf16, and granite-moe-1b-a400m
+    also serving 8 requests; else held in bf16).  The launch counts are
+    set to 0 just before and read just after."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+    for k in counters.values():
+        k.launches = 0
+    t_start = time.perf_counter()
+    pub = get_config(arch)
+    layers, why = ARCH_LAYERS[arch]
+    cfg = dataclasses.replace(pub, n_layers=layers)
+    log(f"[arch] {arch}: layers {layers} of {pub.n_layers}"
+        + (f" ({why})" if why else "") + f"; {smi}")
+    model = Model(cfg, cfg.plan.replace(**OFFLOAD))
+    torch.cuda.reset_peak_memory_stats()
+    params = init_weights(model, 0)
+    out: dict = {"layers": layers, "of": pub.n_layers}
+    if cfg.is_encoder:
+        g = torch.Generator(device="cuda").manual_seed(1)
+        frames = torch.randn((2, 512, cfg.d_model), generator=g,
+                             device="cuda")
+        out["forward"] = phase_forward(model, params, {"features": frames})
+    else:
+        toks = torch.from_numpy(np.random.default_rng(1).integers(
+            0, cfg.vocab_size, (2, 512)).astype(np.int32)).cuda()
+        out["prefill_s"] = timed_prefill(model, params, toks)
+        out["forward"] = phase_forward(model, params, arch_batch(cfg, toks))
+        if cfg.moe is not None:
+            drops = moe_drops(model, params, toks)
+            out["dropped"] = drops
+            log(f"[arch] {arch}: assignments dropped at capacity factor "
+                f"{cfg.moe.capacity_factor} over 2x512 tokens, by layer: "
+                f"mean {np.mean(drops):.4f}, max {max(drops):.4f}")
+            held_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=MOE_HELD_FACTOR))
+            # the config's own plan sets the KV cache's dtype
+            f32 = dataclasses.replace(held_cfg, plan=model.plan.replace(
+                compute_dtype="float32", kv_cache_dtype="float32"))
+            out["f32"] = phase_prefill(Model(f32), params,
+                                       tol_share=MOE_F32_TOL)
+            # in bf16 a router near-tie flips an expert where decode's
+            # stock attention and the forward's kernel round differently:
+            # read, not held (the forward above holds the bf16 path)
+            out["prefill"] = phase_prefill(Model(held_cfg, model.plan),
+                                           params, held=False)
+        else:
+            out["prefill"] = phase_prefill(model, params, tol_share=ARCH_TOL)
+        if arch == "granite-moe-1b-a400m":
+            out["serve_s"] = phase_serve(model, params)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["launches"] = {name: k.launches for name, k in counters.items()}
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"[arch] {arch}: peak device memory {out['peak_gb']:.2f} GB; "
+        f"launches {json.dumps(out['launches'])}; phase "
+        f"{out['seconds']:.1f} s; {smi}")
+    missing = [k for k in PATH_KERNELS[arch] if not out["launches"][k]]
+    if missing:
+        raise RuntimeError(f"{arch}: kernels of its path never launched: "
+                           f"{missing} ({out['launches']})")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1542,7 +1852,7 @@ def main() -> int:
     log(f"[nvml] {source.describe()} (bus {source.bus_id})")
     phase_calibrate(source)
 
-    for arch in PATH_KERNELS:           # one model's weights at a time
+    for arch in MODEL_PATHS:            # one model's weights at a time
         qwen = arch == "qwen2-7b"
         path = run_path(
             arch, counters,
@@ -1562,6 +1872,15 @@ def main() -> int:
             profile_prefill(path["model"], path["params"], path["prefill_s"])
         del path
         torch.cuda.empty_cache()
+    t_archs = time.perf_counter()
+    for arch in ARCH_LAYERS:            # one arch's weights at a time
+        out = run_arch(arch, counters, card["smi"])
+        for name, n in out["launches"].items():
+            launches[name] += n
+        log(f"arch {arch} " + json.dumps(out))
+        del out
+        torch.cuda.empty_cache()
+    log(f"[arch] the seven archs: {time.perf_counter() - t_archs:.1f} s")
     log("kernels " + json.dumps(launches))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 

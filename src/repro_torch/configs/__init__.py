@@ -1,10 +1,9 @@
 """Architecture registry of the port (counterpart of ``repro.configs``).
 
-Importing this package registers the archs the port runs, each with its
-published config and a reduced smoke config: ``qwen2-7b`` (dense),
-``mamba2-1.3b`` (ssm) and ``recurrentgemma-9b`` (hybrid), plus the tiny
-test/example models.  The other archs of ``repro.configs`` need MoE
-layers or front ends that are not ported yet (see ROADMAP.md).
+Importing this package registers every arch of ``repro.configs``, each
+with its published config and a reduced smoke config: dense, MoE, SSM,
+hybrid, audio (encoder) and vision families, plus the tiny test/example
+models.
 """
 from repro_torch.configs.base import (  # noqa: F401
     ArchConfig,
@@ -20,8 +19,15 @@ from repro_torch.configs.base import (  # noqa: F401
 
 # registration side effects
 from repro_torch.configs import (  # noqa: F401,E402
+    granite_20b,
+    granite_moe_1b_a400m,
+    hubert_xlarge,
+    internvl2_76b,
+    llama3_405b,
     mamba2_1p3b,
+    moonshot_v1_16b_a3b,
     qwen2_7b,
     recurrentgemma_9b,
+    stablelm_12b,
     tiny,
 )

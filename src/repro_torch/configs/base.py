@@ -295,3 +295,8 @@ FULL_ATTENTION_SKIPS = {
         "config (DESIGN.md §4)"
     )
 }
+
+ENCODER_SKIPS = {
+    "decode_32k": "encoder-only arch: no autoregressive decode step",
+    "long_500k": "encoder-only arch: no autoregressive decode step",
+}

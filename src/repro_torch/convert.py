@@ -3,7 +3,8 @@
 ``params_from_jax(cfg, tree)`` takes the pytree of ``repro.models.model.
 Model.init`` with its leaves as numpy arrays (``jax.tree.map(np.asarray,
 params)``): the ``scan`` stack (one unit of stacked layers), the ``tail``
-dict of unrolled layers, ``embed``, ``lm_head`` and ``final_norm``.  It
+dict of unrolled layers (MoE experts, LayerNorm biases and all), ``embed``,
+``lm_head``, the audio ``frontend`` and ``final_norm``.  It
 returns the ``state_dict`` of ``models.transformer.Transformer`` on the CPU
 (``Model.load`` moves it to the model's device).  This is how the tests put
 the same weights into both packages: the two have different random
@@ -34,8 +35,9 @@ def _put(state: dict, prefix: str, sub: dict, index=None) -> None:
 def params_from_jax(cfg: ArchConfig, tree: dict) -> dict:
     check_supported(cfg)
     state: dict = {"embed": _tensor(np.asarray(tree["embed"]))}
-    if "lm_head" in tree:
-        state["lm_head"] = _tensor(np.asarray(tree["lm_head"]))
+    for k in ("lm_head", "frontend"):
+        if k in tree:
+            state[k] = _tensor(np.asarray(tree[k]))
     _put(state, "final_norm.", tree["final_norm"])
     layer = 0
     scan = tree.get("scan", {})

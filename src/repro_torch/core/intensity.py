@@ -21,20 +21,11 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 
-import math
-
 from repro_torch.configs.base import ArchConfig, PlanConfig, ShapeSpec
+from repro_torch.models.layers import moe_capacity
 
 BF16 = 2
 F32 = 4
-
-
-def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
-    """Tokens an expert takes (copy of ``repro.models.layers.moe_capacity``):
-    top_k x tokens / experts x the capacity factor, rounded up to 8."""
-    m = cfg.moe
-    c = int(math.ceil(m.top_k * n_tokens / m.n_experts * m.capacity_factor))
-    return max(8, -(-c // 8) * 8)
 
 
 def _dt_bytes(name: str) -> int:

@@ -1,10 +1,10 @@
-"""Core transformer layers: norms, RoPE, GQA attention, MLP.
+"""Core transformer layers: norms, RoPE, GQA attention, MLP, MoE.
 
-Counterpart of ``repro.models.layers`` for the ported archs: RMSNorm,
-RoPE, grouped attention with causal and sliding-window masks, and the
-SwiGLU and GELU MLPs (LayerNorm and MoE wait for the archs that need them,
-ROADMAP.md).  Every temporal-mixing site reads its destination from the
-plan:
+Counterpart of ``repro.models.layers``: RMSNorm and LayerNorm, RoPE,
+grouped attention with causal, bidirectional (encoder) and sliding-window
+masks, the SwiGLU and GELU MLPs, and the token-choice MoE with sort-based
+capacity dispatch.  Every temporal-mixing site reads its destination from
+the plan:
 
   attention : 'xla' (naive), 'xla_chunked' (online softmax over KV chunks),
               'pallas' (the flash-attention kernel; prefill only, as in the
@@ -12,6 +12,9 @@ plan:
   mlp       : 'xla' (stock ops), 'pallas' (the fused SwiGLU kernel; the
               GELU MLP has no kernel and always runs stock ops, as in the
               reference)
+  moe       : 'xla' (sort-based capacity dispatch in stock ops; the
+              reference computes its experts with ``jnp.einsum``, outside
+              any kernel)
 
 Parameters are plain tensors in dicts keyed as in the reference pytree, in
 ``plan.param_dtype``; compute runs in ``plan.compute_dtype`` with f32
@@ -49,10 +52,17 @@ def pdtype(plan: PlanConfig) -> torch.dtype:
 
 
 def apply_norm(params, x, cfg: ArchConfig):
-    """RMSNorm with f32 accumulation (the ported archs' norm)."""
+    """RMSNorm, or for ``norm="layernorm"`` LayerNorm with a bias (the
+    population variance, eps 1e-6 as the reference), f32 accumulation."""
     x32 = x.float()
-    ms = x32.square().mean(-1, keepdim=True)
-    y = x32 * torch.rsqrt(ms + 1e-6) * params["scale"].float()
+    if cfg.norm == "layernorm":
+        mu = x32.mean(-1, keepdim=True)
+        var = x32.var(-1, keepdim=True, correction=0)
+        y = (x32 - mu) * torch.rsqrt(var + 1e-6)
+        y = y * params["scale"].float() + params["bias"].float()
+    else:
+        ms = x32.square().mean(-1, keepdim=True)
+        y = x32 * torch.rsqrt(ms + 1e-6) * params["scale"].float()
     return y.to(x.dtype)
 
 
@@ -275,6 +285,85 @@ def run_mlp(params, x, cfg: ArchConfig, plan: PlanConfig):
     return torch.einsum("bsf,fd->bsd", h, params["wo"].to(dt))
 
 
+def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
+    """Assignments an expert takes: top_k x tokens / experts x the
+    capacity factor, rounded up to a multiple of 8 (at least 8)."""
+    m = cfg.moe
+    c = int(math.ceil(m.top_k * n_tokens / m.n_experts * m.capacity_factor))
+    return max(8, -(-c // 8) * 8)
+
+
+def moe_route(params, xt, cfg: ArchConfig, plan: PlanConfig):
+    """The router over tokens ``xt`` (t,d): its softmax in f32 (t,e), and
+    each token's top k experts (t,k) with their gates renormalised.  Ties
+    go to the lower expert, as ``lax.top_k`` breaks them (a stable
+    descending sort)."""
+    logits = (xt @ params["router"].to(cdtype(plan))).float()
+    probs = torch.softmax(logits, dim=-1)
+    gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    gate, idx = gate[:, :cfg.moe.top_k], idx[:, :cfg.moe.top_k]
+    gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
+    return probs, gate, idx
+
+
+def moe_slots(idx, n_experts: int, cap: int):
+    """Capacity assignment via a stable sort (no (T,E,C) dispatch tensor):
+    the token-major assignments ``idx`` (t,k) sorted by expert, each one's
+    position in its expert's run, and those at or past ``cap`` dropped.
+    Returns (slot, keep), each (t*k,): a kept assignment's row
+    ``expert * cap + position`` in the (e*cap, d) buffer; a dropped one's
+    the overflow row ``e * cap``."""
+    eid = idx.reshape(-1)
+    order = torch.argsort(eid, stable=True)
+    sorted_eid = eid[order]
+    run_start = torch.searchsorted(
+        sorted_eid, torch.arange(n_experts, device=eid.device,
+                                 dtype=eid.dtype))
+    pos_sorted = torch.arange(eid.shape[0], device=eid.device) \
+        - run_start[sorted_eid]
+    pos = torch.empty_like(pos_sorted).index_copy_(0, order, pos_sorted)
+    keep = pos < cap
+    return torch.where(keep, eid * cap + pos, n_experts * cap), keep
+
+
 def run_moe(params, x, cfg: ArchConfig, plan: PlanConfig):
-    raise NotImplementedError(
-        "MoE routing is not ported yet (ROADMAP.md, port queue: MoE)")
+    """Token-choice top-k routing with capacity; returns (y, aux_loss).
+
+    Op for op the reference's sort-based dispatch (``moe_route``,
+    ``moe_slots``) with the Switch aux loss.  Which assignments an expert
+    drops depends on the whole flattened batch (b-major), later positions
+    included.  The dispatch is an index copy (each kept slot takes one
+    assignment; the dropped ones land in the overflow row, which is cut
+    off) and the combine sums each token's k gated rows in a fixed order:
+    no atomics on the card, one result for one input.
+    """
+    m = cfg.moe
+    b, s, d = x.shape
+    t, k, e = b * s, m.top_k, m.n_experts
+    cap = moe_capacity(cfg, t)
+    dt = cdtype(plan)
+
+    xt = x.reshape(t, d)
+    probs, gate, idx = moe_route(params, xt, cfg, plan)
+
+    # load-balance auxiliary loss (Switch-style)
+    density = F.one_hot(idx[:, 0], e).float().mean(0)
+    aux = e * (density * probs.mean(0)).sum()
+
+    slot, keep = moe_slots(idx, e, cap)
+    tok = torch.arange(t, device=x.device).repeat_interleave(k)
+    buf = torch.zeros((e * cap + 1, d), dtype=dt, device=x.device)
+    buf.index_copy_(0, slot, xt[tok].to(dt))
+    buf = buf[:-1].reshape(e, cap, d)
+
+    # the experts' SwiGLU, batched over experts
+    h = torch.bmm(buf, params["wi"].to(dt))
+    g = torch.bmm(buf, params["wg"].to(dt))
+    yb = torch.bmm(F.silu(g) * h, params["wo"].to(dt))
+
+    # combine: each token's k assignments, gated, summed in order
+    yfl = torch.cat([yb.reshape(e * cap, d),
+                     torch.zeros((1, d), dtype=dt, device=x.device)])
+    y_assign = yfl[slot] * (gate.reshape(-1, 1).to(dt) * keep[:, None])
+    y = y_assign.reshape(t, k, d).sum(1)
+    return y.reshape(b, s, d), aux

@@ -6,13 +6,13 @@ with ``lax.scan`` and unrolls a tail; here the layers are an
 ``nn.ModuleList`` in the same order (``cfg.layer_kinds()``: unit-major,
 then the tail) walked by a Python loop.  Each layer's parameters are
 ``nn.ParameterDict``s keyed as in the reference pytree (``norm1``,
-``mixer`` and, except in an ``ssm`` layer, ``norm2`` and ``mlp``), so the
-functions of ``models.layers``, ``models.ssm`` and ``models.rglru`` read
-them exactly as the reference reads its dicts, and ``repro_torch.convert``
-maps the pytree onto ``state_dict`` keys one to one.
-
-MoE layers, the audio/vision front ends and LayerNorm raise
-``NotImplementedError``: their archs are later slices of the port.
+``mixer`` and, except in an ``ssm`` layer, ``norm2`` and ``mlp``, or
+``moe`` in the attention layers of a MoE arch), so the functions of
+``models.layers``, ``models.ssm`` and ``models.rglru`` read them exactly as
+the reference reads its dicts, and ``repro_torch.convert`` maps the pytree
+onto ``state_dict`` keys one to one.  ``embed_inputs`` is the reference's
+front end: token embeddings, audio frames through ``frontend``, or vision
+patch embeddings over the first ``n_patches`` positions.
 """
 from __future__ import annotations
 
@@ -31,6 +31,9 @@ from repro_torch.models import ssm as S
 
 
 def _norm_spec(cfg: ArchConfig) -> dict:
+    if cfg.norm == "layernorm":
+        return {"scale": ((cfg.d_model,), ("ones",)),
+                "bias": ((cfg.d_model,), ("zeros",))}
     return {"scale": ((cfg.d_model,), ("ones",))}
 
 
@@ -43,6 +46,15 @@ def _mlp_spec(cfg: ArchConfig) -> dict:
     return {"wi": ((d, f), ("normal", s_in)),
             "wg": ((d, f), ("normal", s_in)),
             "wo": ((f, d), ("normal", s_out))}
+
+
+def _moe_spec(cfg: ArchConfig) -> dict:
+    e, d, f = cfg.moe.n_experts, cfg.d_model, cfg.moe.d_ff_expert
+    s_in, s_out = 1.0 / math.sqrt(d), 1.0 / math.sqrt(f)
+    return {"router": ((d, e), ("normal", s_in)),
+            "wi": ((e, d, f), ("normal", s_in)),
+            "wg": ((e, d, f), ("normal", s_in)),
+            "wo": ((e, f, d), ("normal", s_out))}
 
 
 def _attn_spec(cfg: ArchConfig) -> dict:
@@ -69,8 +81,13 @@ def layer_spec(cfg: ArchConfig, kind: str) -> dict:
         mixer = R.rglru_spec(cfg)
     else:
         raise ValueError(kind)
-    return {"norm1": _norm_spec(cfg), "mixer": mixer,
-            "norm2": _norm_spec(cfg), "mlp": _mlp_spec(cfg)}
+    spec = {"norm1": _norm_spec(cfg), "mixer": mixer,
+            "norm2": _norm_spec(cfg)}
+    if kind == "attn" and cfg.moe is not None and cfg.family == "moe":
+        spec["moe"] = _moe_spec(cfg)
+    else:
+        spec["mlp"] = _mlp_spec(cfg)
+    return spec
 
 
 def attn_window(cfg: ArchConfig) -> int:
@@ -79,15 +96,21 @@ def attn_window(cfg: ArchConfig) -> int:
     return cfg.local_window if cfg.family == "hybrid" else 0
 
 
+#: the norms, activations and front ends the reference defines
+NORMS = ("rmsnorm", "layernorm")
+ACTS = ("swiglu", "gelu")
+FRONTENDS = ("none", "audio_frames", "vision_patches")
+
+
 def check_supported(cfg: ArchConfig) -> None:
-    if cfg.moe is not None and cfg.family == "moe":
+    """Refuse a norm, activation or front end the reference does not
+    define (it would silently take another branch there)."""
+    if cfg.norm not in NORMS or cfg.act not in ACTS \
+            or cfg.frontend not in FRONTENDS:
         raise NotImplementedError(
-            "MoE layers are not ported yet (ROADMAP.md, port queue: MoE)")
-    if cfg.frontend != "none" or cfg.norm != "rmsnorm" \
-            or cfg.act not in ("swiglu", "gelu"):
-        raise NotImplementedError(
-            f"frontend {cfg.frontend!r}, norm {cfg.norm!r} and act "
-            f"{cfg.act!r} are not ported yet (ROADMAP.md, port queue)")
+            f"norm {cfg.norm!r}, act {cfg.act!r}, frontend "
+            f"{cfg.frontend!r}: the reference defines norms {NORMS}, "
+            f"acts {ACTS} and front ends {FRONTENDS}")
 
 
 def _param(shape, dtype, device) -> nn.Parameter:
@@ -123,6 +146,8 @@ class Transformer(nn.Module):
              for k, (shape, _) in _norm_spec(cfg).items()})
         if not cfg.tie_embeddings:
             self.lm_head = _param((d, v), dt, device)
+        if cfg.frontend == "audio_frames":
+            self.frontend = _param((d, d), dt, device)
         self.layers = nn.ModuleList(Layer(cfg, kind, device)
                                     for kind in cfg.layer_kinds())
 
@@ -133,7 +158,8 @@ class Transformer(nn.Module):
         device (no host copy)."""
         cfg = self.cfg
         rules = {"embed": ("normal", 0.02),
-                 "lm_head": ("normal", 1.0 / math.sqrt(cfg.d_model))}
+                 "lm_head": ("normal", 1.0 / math.sqrt(cfg.d_model)),
+                 "frontend": ("normal", 1.0 / math.sqrt(cfg.d_model))}
         for k, (_, rule) in _norm_spec(cfg).items():
             rules[f"final_norm.{k}"] = rule
         for i, kind in enumerate(cfg.layer_kinds()):
@@ -202,7 +228,34 @@ def apply_layer(p: Layer, x, cfg: ArchConfig, plan: PlanConfig, positions,
                                      decode, attn_window(cfg))
     x = x + mix
     h = L.apply_norm(p.norm2, x, cfg)
-    return x + L.run_mlp(p.mlp, h, cfg, plan), cache
+    if hasattr(p, "moe"):
+        # the aux loss is summed into a loss by training (not ported)
+        ff, _aux = L.run_moe(p.moe, h, cfg, plan)
+    else:
+        ff = L.run_mlp(p.mlp, h, cfg, plan)
+    return x + ff, cache
+
+
+def embed_inputs(params: Transformer, batch: dict, cfg: ArchConfig,
+                 plan: PlanConfig):
+    """(B,S,d) inputs in the compute dtype: ``batch["features"] @
+    frontend`` for audio frames; else the tokens' embeddings, whose first
+    ``n_patches`` positions ``batch["patch_embeds"]`` (B,n_patches,d)
+    overwrites when given (vision)."""
+    dt = L.cdtype(plan)
+    if cfg.frontend == "audio_frames":
+        return batch["features"].to(dt) @ params.frontend.to(dt)
+    # gather, then cast the B*S rows: the same numbers as the reference's
+    # cast-then-gather without casting the whole table every step
+    h = params.embed[batch["tokens"]].to(dt)
+    if cfg.frontend == "vision_patches" and "patch_embeds" in batch:
+        pe = batch["patch_embeds"]
+        npatch = pe.shape[1]
+        if npatch > h.shape[1]:
+            raise ValueError(f"{npatch} patch embeddings do not fit a "
+                             f"prompt of {h.shape[1]} positions")
+        h[:, :npatch] = pe.to(dt)
+    return h
 
 
 def forward(params: Transformer, batch: dict, cfg: ArchConfig,
@@ -214,15 +267,13 @@ def forward(params: Transformer, batch: dict, cfg: ArchConfig,
     prefill: cache=list, decode=False  -> logits (B,S,V) + filled cache
     decode:  cache=list, decode=True   -> logits (B,1,V) + updated cache
 
-    ``batch["tokens"]`` is a (B,S) integer tensor on the weights' device;
-    in decode ``batch["pos"]`` (an int or a 0-d tensor) is the position of
-    the whole batch.
+    ``batch["tokens"]`` is a (B,S) integer tensor on the weights' device
+    (audio: ``batch["features"]`` (B,S,d); vision: also
+    ``batch["patch_embeds"]``, see ``embed_inputs``); in decode
+    ``batch["pos"]`` (an int or a 0-d tensor) is the position of the whole
+    batch.
     """
-    dt = L.cdtype(plan)
-    tokens = batch["tokens"]
-    # gather, then cast the B*S rows: the same numbers as the reference's
-    # cast-then-gather without casting the whole table every step
-    h = params.embed[tokens].to(dt)
+    h = embed_inputs(params, batch, cfg, plan)
     if decode:
         positions = torch.as_tensor(batch["pos"], dtype=torch.int32,
                                     device=h.device).reshape(1)

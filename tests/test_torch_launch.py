@@ -5,22 +5,34 @@ two nodes, governors, consolidate-and-gate placement and per-tenant
 admission, and renders what it persisted through the reference's jax-free
 ``scripts/power_report.py --ledger`` and ``scripts/trace_report.py``.  The
 flags of engines not ported yet are refused, and without ``--device`` the
-CLI needs a card.
+CLI needs a card.  On reduced granite-moe-1b-a400m it serves the tokens
+and bills of the reference CLI on the same weights.
 """
+import dataclasses
 import subprocess
 import sys
 from pathlib import Path
 
+import jax
+import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_config as jget
+from repro.core import power as j_power
 from repro.telemetry import EnergyLedger as JEnergyLedger
+from repro.telemetry import TickClock as JTickClock
+from repro.telemetry import envelope_for as j_envelope_for
 from repro_torch.configs import CARD_SHAPES, ShapeSpec, get_config
+from repro_torch.convert import params_from_jax
+from repro_torch.core import power
 from repro_torch.core.backends import MeasuredBackend
+from repro_torch.fleet import Node
 from repro_torch.launch import serve
 from repro_torch.models.model import Model
 from repro_torch.obs import read_spans_jsonl
-from repro_torch.telemetry import ConstantSource, EnergyLedger
+from repro_torch.telemetry import (ConstantSource, EnergyLedger, TickClock,
+                                   envelope_for)
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -166,3 +178,87 @@ def test_run_serves_on_the_callers_weights_with_a_measured_governor(
     # one card: the governors share one verifier and its trial cache
     assert len({id(n.governor._verifier) for n in out["nodes"]}) == 1
     assert "served 4 requests" in capsys.readouterr().out
+
+
+# ---------------------------------------------------------------------------
+# The CLI on a MoE arch, against the reference CLI on the same weights
+# ---------------------------------------------------------------------------
+
+MOE_ARGV = ["--arch", "granite-moe-1b-a400m", "--reduced", "--fleet", "2",
+            "--slots", "2", "--requests", "6", "--max-new", "6",
+            "--arrival-every", "1", "--tenants", "teamA,teamB"]
+#: one chip spec, built in both packages from the same numbers
+SPEC = dict(name="test_chip", peak_flops=500e12, hbm_bw=2.0e12,
+            hbm_bytes=64e9, ici_bw=100e9, e_flop=1.1e-12, e_hbm=1.3e-10,
+            e_ici=2e-11, p_static=90.0)
+TICK = 0.005
+
+
+def _f32(cfg):
+    return dataclasses.replace(cfg, plan=cfg.plan.replace(
+        compute_dtype="float32", kv_cache_dtype="float32"))
+
+
+def _ticking(node_cls, envelope, clock):
+    """``node_cls`` whose nodes meter at ``envelope()`` on a virtual
+    ``clock`` (the CLIs' nodes read the wall clock, and each package's
+    default envelope is its own chip's)."""
+    class Ticking(node_cls):
+        @classmethod
+        def build(cls, *args, **kw):
+            kw.update(clock=clock(TICK), envelope=envelope())
+            return super().build(*args, **kw)
+    return Ticking
+
+
+def test_cli_serves_a_moe_arch_as_the_reference_cli(tmp_path, monkeypatch,
+                                                    capsys):
+    """``--arch granite-moe-1b-a400m --reduced``: both CLIs serve the
+    reference's seeded weights (carried by ``params_from_jax``) in f32 on
+    one virtual clock and envelope; the same requests finish with the same
+    tokens, and the persisted fleet ledgers agree cell by cell (rel
+    1e-9).  Then the port's CLI itself, ``--device cpu``, serves the arch
+    at its own plan (bf16) and seeded weights."""
+    from repro.fleet import Node as JNode
+    from repro.launch import serve as jserve
+    from repro.models.model import Model as JModel
+    jcfg = _f32(jget("granite-moe-1b-a400m", reduced=True))
+    cfg = _f32(get_config("granite-moe-1b-a400m", reduced=True))
+    monkeypatch.setattr(jserve, "get_config", lambda name, reduced: jcfg)
+    monkeypatch.setattr(jserve, "Node", _ticking(
+        JNode, lambda: j_envelope_for(j_power.HardwareSpec(**SPEC)),
+        JTickClock))
+    monkeypatch.setattr(serve, "Node", _ticking(
+        Node, lambda: envelope_for(power.HardwareSpec(**SPEC)), TickClock))
+    jledger, ledger = tmp_path / "ref.json", tmp_path / "port.json"
+    monkeypatch.setattr(sys, "argv", ["serve", *MOE_ARGV, "--ledger-out",
+                                      str(jledger)])
+    jserve.main()
+    ref_text = capsys.readouterr().out
+    jp = jax.tree.map(np.asarray, JModel(jcfg).init(jax.random.PRNGKey(0)))
+    model = Model(cfg, device="cpu")
+    out = serve.run(serve.parser().parse_args(
+        [*MOE_ARGV, "--ledger-out", str(ledger)]), model=model,
+        params=model.load(params_from_jax(cfg, jp)))
+    text = capsys.readouterr().out
+    assert len(out["finished"]) == 6
+
+    def served(txt):
+        return sorted(line.split(" (")[0] for line in txt.splitlines()
+                      if line.startswith("req "))
+    assert served(text) == served(ref_text)
+    assert len(served(text)) == 6
+    got, want = EnergyLedger.from_json(ledger), \
+        JEnergyLedger.from_json(jledger)
+    assert got.total_ws == pytest.approx(want.total_ws, rel=1e-9)
+    assert set(got.cells) == set(want.cells)
+    for key, cell in want.cells.items():
+        assert got.cells[key].ws == pytest.approx(cell.ws, rel=1e-9)
+        assert got.cells[key].count == cell.count
+    # the CLI as a user runs it, on the CPU at the arch's own plan
+    monkeypatch.setattr(serve, "Node", Node)
+    own = serve.main([*MOE_ARGV, "--device", "cpu"])
+    vocab = cfg.vocab_size
+    assert len(own["finished"]) == 6
+    assert all(1 <= len(r.out) <= 6 and all(0 <= t < vocab for t in r.out)
+               for r in own["finished"])

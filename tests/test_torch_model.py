@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget
+from repro.configs import list_archs as jlist_archs
 from repro.models import transformer as JT
 from repro.models.model import Model as JModel
 from repro_torch.configs import MoEConfig, get_config, list_archs
@@ -70,8 +71,13 @@ def _logit_tol(arch, f32, jcfg, jp, toks, want):
 
 
 def test_registry_holds_the_ported_archs():
-    assert list_archs() == ["mamba2-1.3b", "qwen2-7b", "recurrentgemma-9b",
-                            "tiny-lm", "tiny-lm-fast", "tiny-test"]
+    """Every arch of the reference, with its published and reduced
+    configs."""
+    assert list_archs() == jlist_archs() == [
+        "granite-20b", "granite-moe-1b-a400m", "hubert-xlarge",
+        "internvl2-76b", "llama3-405b", "mamba2-1.3b", "moonshot-v1-16b-a3b",
+        "qwen2-7b", "recurrentgemma-9b", "stablelm-12b", "tiny-lm",
+        "tiny-lm-fast", "tiny-test"]
     for name in list_archs():
         for reduced in (False, True):
             got = dataclasses.asdict(get_config(name, reduced))
@@ -220,25 +226,43 @@ def test_init_uses_the_reference_scales():
 
 
 def test_unported_families_raise():
+    """The MoE, LayerNorm and front-end variants of the stacks build and
+    run; what still raises is a norm, activation or front end the
+    reference does not define."""
     tiny = get_config("tiny-test")
     hybrid = get_config("recurrentgemma-9b", reduced=True)
+    for cfg in (dataclasses.replace(tiny, act="relu"),
+                dataclasses.replace(tiny, norm="batchnorm"),
+                dataclasses.replace(hybrid, frontend="video_frames")):
+        with pytest.raises(NotImplementedError, match="reference defines"):
+            Model(cfg, device="cpu")
+    toks = {"tokens": torch.zeros((1, 6), dtype=torch.int32)}
     for cfg in (dataclasses.replace(tiny, family="moe",
                                     moe=MoEConfig(4, 2, 32)),
                 dataclasses.replace(tiny, norm="layernorm"),
                 dataclasses.replace(hybrid, norm="layernorm"),
                 dataclasses.replace(get_config("mamba2-1.3b", reduced=True),
                                     norm="layernorm"),
-                dataclasses.replace(hybrid, frontend="vision_patches")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            Model(cfg, device="cpu")
-    # the families of this slice run: ssm, hybrid and the GELU MLP
-    for cfg in (dataclasses.replace(tiny, family="ssm", ssm_state=8,
+                dataclasses.replace(hybrid, frontend="vision_patches"),
+                dataclasses.replace(tiny, family="ssm", ssm_state=8,
                                     ssm_headdim=16),
                 dataclasses.replace(tiny, family="hybrid",
                                     layer_pattern=("rec", "rec", "attn"),
                                     lru_width=32, local_window=8),
                 dataclasses.replace(tiny, act="gelu")):
-        Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+        model = Model(cfg, device="cpu")
+        params = model.init(torch.Generator().manual_seed(0))
+        logits = model.forward(params, toks)
+        assert logits.shape == (1, 6, cfg.vocab_size)
+        assert bool(torch.isfinite(logits.float()).all())
+    frames = dataclasses.replace(tiny, frontend="audio_frames",
+                                 is_encoder=True)
+    model = Model(frames, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    assert params.frontend.shape == (tiny.d_model, tiny.d_model)
+    logits = model.forward(params, {"features": torch.randn(
+        (1, 6, tiny.d_model), generator=torch.Generator().manual_seed(1))})
+    assert logits.shape == (1, 6, tiny.vocab_size)
 
 
 @pytest.mark.parametrize("arch", ["mamba2-1.3b", "recurrentgemma-9b"])

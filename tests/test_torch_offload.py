@@ -27,7 +27,8 @@ from repro.core import narrowing as j_narrowing
 from repro.core import plan as j_plan
 from repro.core import power as j_power
 from repro.core.verifier import Verifier as JVerifier
-from repro_torch.configs import CARD_SHAPES, SHAPES, ShapeSpec, get_config
+from repro_torch.configs import (CARD_SHAPES, SHAPES, ShapeSpec, get_config,
+                                 list_archs)
 from repro_torch.configs.base import get_shape
 from repro_torch.core import backends, fitness, intensity, narrowing, plan
 from repro_torch.core import power
@@ -45,6 +46,8 @@ j_fitness = importlib.import_module("repro.core.fitness")
 
 REL = 1e-12
 ARCHS = ["qwen2-7b", "mamba2-1.3b", "recurrentgemma-9b"]
+#: the census and estimate are held for every published arch
+ALL_ARCHS = [a for a in list_archs() if not a.startswith("tiny")]
 SHAPE_NAMES = ["prefill_32k", "decode_32k"]
 #: one spec, built in both packages from the same numbers
 SPEC = dict(name="test_chip", peak_flops=500e12, hbm_bw=2.0e12,
@@ -220,7 +223,7 @@ def test_analytic_32k_plans_stay_under_the_cards_limit_and_differ():
 # census and estimate
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 @pytest.mark.parametrize("shape", SHAPE_NAMES)
 def test_site_census_equals_the_reference(arch, shape):
     cfg, jcfg = get_config(arch), jget(arch)
@@ -240,7 +243,7 @@ def test_site_census_equals_the_reference(arch, shape):
             _close(a.intensity, b.intensity)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ALL_ARCHS)
 @pytest.mark.parametrize("shape", SHAPE_NAMES)
 @pytest.mark.parametrize("n_chips", [1, 256])
 def test_estimate_program_equals_the_reference(arch, shape, n_chips):
@@ -255,10 +258,16 @@ def test_estimate_program_equals_the_reference(arch, shape, n_chips):
 
 
 def test_moe_capacity_equals_the_reference():
+    """One ``moe_capacity``: the layers' own, which the census imports (as
+    the reference's does)."""
     from repro.models.layers import moe_capacity as j_moe_capacity
-    jcfg = jget("granite-moe-1b-a400m")
-    for n in (1, 7, 4096, 131072):
-        assert intensity.moe_capacity(jcfg, n) == j_moe_capacity(jcfg, n)
+    from repro_torch.models.layers import moe_capacity
+    assert intensity.moe_capacity is moe_capacity
+    for arch in ("granite-moe-1b-a400m", "moonshot-v1-16b-a3b"):
+        for reduced in (False, True):
+            cfg, jcfg = get_config(arch, reduced), jget(arch, reduced)
+            for n in (1, 7, 8, 1040, 4096, 131072):
+                assert moe_capacity(cfg, n) == j_moe_capacity(jcfg, n)
 
 
 def test_estimate_program_refuses_train_shapes():
