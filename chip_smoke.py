@@ -120,7 +120,31 @@ a non-zero exit and no result line:
               or BF16_GAP_SLACK x the stock-op bf16 forward's own error
               where that is larger); each phase's peak device memory, its
               launches (flash_attention on every arch, swiglu too on
-              stablelm-12b, llama3-405b and internvl2-76b) and seconds.
+              stablelm-12b, llama3-405b and internvl2-76b) and seconds;
+  8. train    each autograd Function (flash_attention at D 128 causal and
+              at D 256 with the 2048 window, swiglu, ssd in bf16, rglru)
+              at a train microbatch's shape (one 4096-token sequence): its
+              forward (the kernel) held to the plain version by the
+              tolerances above, its gradients to autograd of the plain
+              version on the card (bit for bit, else GRAD_REL), the
+              kernel's forward, the Function's backward and the plain
+              graph's backward timed beside SDPA's / the cuBLAS chain's
+              forward and backward; then qwen2-7b, mamba2-1.3b and
+              recurrentgemma-9b at published width (TRAIN_LAYERS: depth
+              cut, logged "layers L of N"), one model's weights at a time:
+              the stock plan's first step (loss and gradient norm) in f32
+              and bf16, then TRAIN_STEPS AdamW steps under the offload
+              plan on SyntheticLM batches at train_4k_b4 (the configs'
+              remat="full", microbatches=4), finite, the first within
+              max(2^-8, BF16_GAP_SLACK x the stock bf16 gap) of the f32
+              stock step, with step times and peak memory; the measured
+              rung's train trial at train_4k_b4 (s, W, Ws a step, its NVML
+              window checked) beside the analytic estimate; each path's
+              kernels must launch; last, ``launch.train.run`` on tiny-lm
+              in a child process with deterministic algorithms (12 steps,
+              a checkpoint every 4, a failure at step 6, a resume): the
+              resumed losses equal the uninterrupted run's bit for bit and
+              the loss falls.
 
 Every window sampled from the card's NVML energy counter must agree with
 the counter's own difference over it within 5 %.  Kernel phase 3 also times
@@ -1827,6 +1851,443 @@ def run_arch(arch: str, counters: dict, smi: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 8: training
+# ---------------------------------------------------------------------------
+
+#: the three models' train paths at published width: the layers on the
+#: card and why the depth is cut (AdamW with f32 parameters holds 16 B a
+#: parameter: parameters, gradients and two moments).  recurrentgemma-9b
+#: would fit 6 layers (two units; 73.1 GB at peak), but its plain RG-LRU
+#: backward, 4096 in-place steps, takes about 1.1 s a call and 16 calls a
+#: step there (21 s a step): one unit keeps the phase inside the run's time
+TRAIN_LAYERS = {
+    "qwen2-7b": (8, "28 layers hold 122 GB of f32 params, grads and AdamW "
+                    "moments"),
+    "mamba2-1.3b": (48, ""),
+    "recurrentgemma-9b": (3, "38 layers hold 148 GB of f32 params, grads "
+                             "and AdamW moments; one unit (rec, rec, attn), "
+                             "not the 6 layers that fit, for the run's time: "
+                             "the plain RG-LRU backward takes ~1.1 s a call"),
+}
+#: the reference's train_4k (4096 x 256) with the batch cut to 4: under
+#: the configs' own remat="full", microbatches=4, one sequence a microbatch
+TRAIN_SHAPE = "train_4k_b4"
+TRAIN_STEPS = 4
+#: the kernels each train path must launch
+TRAIN_KERNELS = {"qwen2-7b": ("flash_attention", "swiglu"),
+                 "mamba2-1.3b": ("ssd",),
+                 "recurrentgemma-9b": ("flash_attention", "rglru")}
+#: the floor of the first step's hold, relative to the f32 value: one bf16
+#: rounding (where the stock bf16 step happens to sit closer to f32)
+TRAIN_FLOOR = 2.0 ** -8
+#: a Function's gradients against autograd of its plain version on the
+#: card: the same code on the same inputs, so bit for bit; where not, at
+#: most this share of the gradient's largest element
+GRAD_REL = 1e-6
+#: the tiny-lm CLI run: 12 steps, a checkpoint every 4, a failure at 6
+CLI_STEPS, CLI_EVERY, CLI_FAIL = 12, 4, 6
+
+
+def timed_backward(fn, args, cots, reps: int) -> float:
+    """Mean ms of the backward alone: ``fn``'s graph built once, then its
+    gradients taken ``reps`` times (CUDA events)."""
+    out = fn(*args)
+    outs = out if isinstance(out, tuple) else (out,)
+    return cuda_ms(lambda: torch.autograd.grad(outs, args, cots,
+                                               retain_graph=True), reps, 1)
+
+
+def function_case(name: str, fn, plain, library, args, hold, work: tuple,
+                  reps: int, shape: str) -> dict:
+    """One autograd Function at a training shape: the forward (the kernel)
+    held by ``hold(got)``; the gradients against autograd of the
+    plain version on the same inputs and cotangents (GRAD_REL); the
+    kernel's forward, the Function's backward (the plain version
+    rematerialized, then differentiated) and the plain graph's backward
+    alone, beside the library's forward and backward (``library``: None
+    where no PyTorch call computes it)."""
+    from repro_torch.kernels import ops
+    args = [a.detach().requires_grad_() for a in args]
+    out = fn(*args)
+    outs = out if isinstance(out, tuple) else (out,)
+    with torch.no_grad():
+        err = hold(tuple(o.detach() for o in outs) if isinstance(out, tuple)
+                   else out.detach())
+    g = torch.Generator(device="cuda").manual_seed(3)
+    cots = [torch.randn(o.shape, generator=g, device="cuda").to(o.dtype)
+            for o in outs]
+    got = torch.autograd.grad(outs, args, cots)
+    del out, outs
+    pout = plain(*args)
+    pouts = pout if isinstance(pout, tuple) else (pout,)
+    ref_g = torch.autograd.grad(pouts, args, cots)
+    del pout, pouts
+    equal = all(torch.equal(a, b) for a, b in zip(got, ref_g))
+    rel = max(float((a.float() - b.float()).abs().max())
+              / max(float(b.float().abs().max()), 1e-30)
+              for a, b in zip(got, ref_g))
+    del got, ref_g
+    if rel > GRAD_REL:
+        raise RuntimeError(f"{name} Function: gradients {rel:.3e} of max "
+                           f"from autograd of the plain version (> "
+                           f"{GRAD_REL})")
+    with torch.no_grad():
+        ms = graph_ms(lambda: fn(*args), reps)
+    ops_bwd = cuda_ms(lambda: ops._plain_vjp(plain, args, cots), reps, 1)
+    row = {"max_abs_err": err, "grad_bit_equal": equal, "grad_max_rel": rel,
+           "ms": ms, "function_bwd_ms": ops_bwd,
+           "plain_bwd_ms": timed_backward(plain, args, cots, reps),
+           **bound(*work), "shape": shape}
+    if library is not None:
+        lib_fn, lib_args = library
+        lib_args = [a.detach().requires_grad_() for a in lib_args]
+        with torch.no_grad():
+            row["library_ms"] = cuda_ms(lambda: lib_fn(*lib_args), reps)
+        lout = lib_fn(*lib_args)
+        lcot = [torch.randn(lout.shape, generator=g, device="cuda")
+                .to(lout.dtype)]
+        del lout
+        row["library_bwd_ms"] = timed_backward(lib_fn, lib_args, lcot, reps)
+    else:
+        row["library_ms"] = row["library_bwd_ms"] = None
+    lib = "null" if row["library_ms"] is None else \
+        f"{row['library_ms']:.4f} fwd, {row['library_bwd_ms']:.4f} bwd"
+    log(f"[train] {name} Function ({shape}): forward max_err {err:.3e}; "
+        f"gradients vs autograd of the plain version "
+        f"{'bit-equal' if equal else f'{rel:.3e} of max'}; kernel fwd "
+        f"{ms:.4f} ms (bound {row['bound_ms']:.4f}, {row['bound_by']}); "
+        f"Function bwd (plain rematerialized + autograd) {ops_bwd:.4f} ms; "
+        f"plain bwd alone {row['plain_bwd_ms']:.4f} ms; library "
+        f"{lib}")
+    return row
+
+
+def phase_functions() -> dict:
+    """Each autograd Function at its train path's shape (one sequence of
+    TRAIN_SHAPE's 4096 tokens a microbatch), against its plain version on
+    the card."""
+    from repro_torch.configs.base import get_shape
+    from repro_torch.kernels import ops, ref
+    s, rows = get_shape(TRAIN_SHAPE).seq_len, {}
+    g = torch.Generator(device="cuda").manual_seed(11)
+
+    def randn(*shape, dtype=torch.bfloat16, scale=1.0):
+        return (torch.randn(shape, generator=g, device="cuda") * scale
+                ).to(dtype)
+
+    def flash(hq, hkv, d, window, label):
+        q, k, v = randn(1, s, hq, d), randn(1, s, hkv, d), randn(1, s, hkv, d)
+
+        def hold(got):
+            want = ref.flash_attention_ref(q.float(), k.float(), v.float(),
+                                           True, window)
+            return check(f"flash {label}", got, want,
+                         ROUND * float(v.float().abs().max()) + BF16_TOL[0],
+                         BF16_TOL[1])
+        pos = torch.arange(s, device="cuda")
+        keep = pos[None, :] <= pos[:, None]
+        if window:
+            keep &= pos[:, None] - pos[None, :] < window
+        rep = hq // hkv
+
+        def sdpa(a, b, c):
+            a, b, c = (t.transpose(1, 2) for t in (
+                a, b.repeat_interleave(rep, 2), c.repeat_interleave(rep, 2)))
+            o = F.scaled_dot_product_attention(a, b, c, attn_mask=keep) \
+                if window else F.scaled_dot_product_attention(a, b, c,
+                                                              is_causal=True)
+            return o.transpose(1, 2)
+        pairs = int(keep.sum())
+        work = (4.0 * hq * d * pairs, PEAK_BF16,
+                (2 * q.numel() + k.numel() + v.numel()) * 2)
+        return function_case(
+            f"flash_attention {label}",
+            lambda a, b, c: ops.flash_attention(a, b, c, True, window),
+            lambda a, b, c: ref.flash_attention_ref(a, b, c, True, window),
+            (sdpa, [q, k, v]), [q, k, v], hold, work, 5,
+            f"B=1 S=T={s} Hq={hq} Hkv={hkv} D={d} bf16 causal"
+            + (f" window {window}" if window else ""))
+    rows["flash_attention"] = flash(28, 4, 128, 0, "qwen2-7b")
+    rows["flash_attention_local"] = flash(16, 1, 256, 2048,
+                                          "recurrentgemma-9b")
+
+    d, f = 3584, 18944
+    x = randn(s, d)
+    wi, wg = randn(d, f, scale=d ** -0.5), randn(d, f, scale=d ** -0.5)
+    wo = randn(f, d, scale=f ** -0.5)
+
+    def swiglu_hold(got):
+        x32, wi32, wg32, wo32 = (t.float() for t in (x, wi, wg, wo))
+        a = F.silu(x32 @ wg32) * (x32 @ wi32)
+        return check("swiglu", got, a @ wo32,
+                     ROUND * (a.abs() @ wo32.abs()) + BF16_TOL[0],
+                     BF16_TOL[1])
+
+    def chain(xx, a, b, c):
+        return (F.silu(xx @ b) * (xx @ a)) @ c
+    rows["swiglu"] = function_case(
+        "swiglu", ops.fused_swiglu, ref.swiglu_ref, (chain, [x, wi, wg, wo]),
+        [x, wi, wg, wo], swiglu_hold,
+        (6.0 * s * d * f, PEAK_BF16, (3 * d * f + 2 * s * d) * 2), 3,
+        f"T={s} d={d} f={f} bf16")
+
+    h, p, n, q = 64, 64, 128, 256
+    sargs = [F.silu(randn(1, s, h, p, dtype=torch.float32)).bfloat16(),
+             F.softplus(randn(1, s, h, dtype=torch.float32)),
+             -torch.exp(0.2 * randn(h, dtype=torch.float32)),
+             randn(1, s, n), randn(1, s, n)]
+
+    def ssd_hold(got):
+        f32 = [t.float() for t in sargs]
+        return check_ssd("ssd", got, ref.ssd_ref(*f32, q), sargs, q)
+    flops, nbytes = ssd_work(1, s, h, p, n, q, 2)
+    rows["ssd"] = function_case(
+        "ssd", lambda *a: ops.ssd(*a, chunk=q),
+        lambda *a: ref.ssd_ref(*a, q), None, sargs, ssd_hold,
+        (flops, PEAK_BF16, nbytes), 3,
+        f"B=1 S={s} H={h} P={p} N={n} chunk {q}, x/B/C/y bf16")
+
+    w = 4096
+    u = torch.empty(w, device="cuda").uniform_(0.9 ** 2, 0.999 ** 2,
+                                               generator=g)
+    lam = torch.log(torch.exp(-torch.log(u) / 16.0) - 1.0)
+    log_a = -8.0 * F.softplus(lam) * torch.sigmoid(
+        randn(1, s, w, dtype=torch.float32))
+    bb = torch.sqrt(1.0 - torch.exp(2.0 * log_a)) \
+        * randn(1, s, w, dtype=torch.float32)
+    rows["rglru"] = function_case(
+        "rglru", ops.rglru, ref.rglru_ref, None, [log_a, bb],
+        lambda got: check("rglru", got, ref.rglru_ref(log_a, bb), 2e-5,
+                          2e-5),
+        (3.0 * s * w, PEAK_F32, 12.0 * s * w), 1, f"B=1 S={s} W={w} f32")
+    return rows
+
+
+def train_batches(cfg, shape) -> list:
+    """TRAIN_STEPS batches of the synthetic pipeline at ``shape``, on the
+    card."""
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=shape.seq_len,
+                                  global_batch=shape.global_batch))
+    return [{k: torch.from_numpy(v).cuda() for k, v in data.batch(i).items()}
+            for i in range(TRAIN_STEPS)]
+
+
+def first_step(model, params, batch) -> tuple:
+    """The first step's loss and gradient norm (before the clip), without
+    the update."""
+    from repro_torch.train.step import (global_norm, make_grad_step,
+                                        param_leaves)
+    grads, loss = make_grad_step(model)(params, batch)
+    gnorm = float(global_norm(param_leaves(model.cfg, grads)))
+    return float(loss), gnorm
+
+
+def run_train_path(arch: str, counters: dict, source, smi: str) -> dict:
+    """One model's train path at published width, depth cut as
+    TRAIN_LAYERS says: random weights (seed 0) on the card; the first
+    step's loss and gradient norm under the stock plan in f32 and bf16
+    compute; then, with the launch counts set to 0, TRAIN_STEPS steps of
+    AdamW under the offload plan on SyntheticLM batches at TRAIN_SHAPE
+    (the first held against the f32 stock step), and the measured rung's
+    train trial at the same shape beside the analytic estimate; the
+    counts read after."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import get_shape
+    from repro_torch.core.backends import (AnalyticBackend, MeasureContext,
+                                           MeasuredBackend)
+    from repro_torch.models.model import Model
+    from repro_torch.telemetry.nvml import check_window
+    from repro_torch.train.step import make_opt_init, make_train_step
+    t_start = time.perf_counter()
+    pub = get_config(arch)
+    layers, why = TRAIN_LAYERS[arch]
+    cfg = dataclasses.replace(pub, n_layers=layers)
+    shape = get_shape(TRAIN_SHAPE)
+    log(f"[train] {arch}: layers {layers} of {pub.n_layers}"
+        + (f" ({why})" if why else "") + f"; {TRAIN_SHAPE} ({shape.global_batch}"
+        f" x {shape.seq_len}), remat {cfg.plan.remat}, microbatches "
+        f"{cfg.plan.microbatches}, {cfg.optimizer}; {smi}")
+    batches = train_batches(cfg, shape)
+    stock = Model(cfg)
+    params = init_weights(stock, 0)
+    out: dict = {"layers": layers, "of": pub.n_layers}
+    for label, plan in (("stock_f32", cfg.plan.replace(
+            compute_dtype="float32")), ("stock", cfg.plan)):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[label] = first_step(Model(cfg, plan), params, batches[0])
+        torch.cuda.synchronize()
+        log(f"[train] {arch} first step, {label.replace('_', ' ')} plan "
+            f"({plan.attn_impl}/{plan.mlp_impl}/{plan.ssm_impl}/"
+            f"{plan.rglru_impl}, {plan.compute_dtype}): loss "
+            f"{out[label][0]:.6f}, grad norm {out[label][1]:.6f} "
+            f"({time.perf_counter() - t0:.2f} s)")
+
+    for k in counters.values():
+        k.launches = 0
+    model = Model(cfg, cfg.plan.replace(**OFFLOAD))
+    torch.cuda.reset_peak_memory_stats()
+    opt = make_opt_init(model)(params)
+    step = make_train_step(model)
+    losses, norms, seconds = [], [], []
+    for b in batches:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, opt, met = step(params, opt, b)
+        losses.append(float(met["loss"]))
+        norms.append(float(met["grad_norm"]))
+        seconds.append(time.perf_counter() - t0)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out.update(losses=losses, grad_norms=norms, step_s=seconds)
+    if not all(math.isfinite(v) for v in losses + norms):
+        raise RuntimeError(f"{arch}: non-finite train loss or grad norm "
+                           f"({losses}, {norms})")
+    ref32, ref16 = out["stock_f32"], out["stock"]
+    for i, what in enumerate(("loss", "grad norm")):
+        got, want = (losses[0], norms[0])[i], ref32[i]
+        gap = abs(ref16[i] - want)
+        limit = max(TRAIN_FLOOR * abs(want), BF16_GAP_SLACK * gap)
+        log(f"[train] {arch} first step {what}: offload {got:.6f}, stock "
+            f"f32 {want:.6f}, stock bf16 {ref16[i]:.6f}; |offload - f32| "
+            f"{abs(got - want):.3e} (limit {limit:.3e} = max(2^-8 "
+            f"|f32|, {BF16_GAP_SLACK} x the stock bf16 gap {gap:.3e}))")
+        if abs(got - want) > limit:
+            raise RuntimeError(f"{arch}: first step {what} {got} is "
+                               f"{abs(got - want):.3e} from the stock f32 "
+                               f"step's {want} (limit {limit:.3e})")
+    log(f"[train] {arch} offload plan, {TRAIN_STEPS} AdamW steps: losses "
+        + ", ".join(f"{v:.4f}" for v in losses) + "; grad norms "
+        + ", ".join(f"{v:.4f}" for v in norms) + "; step s "
+        + ", ".join(f"{v:.3f}" for v in seconds)
+        + f"; peak device memory {out['peak_gb']:.2f} GB")
+    del params, opt, step, model, stock, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    plan = cfg.plan.replace(**OFFLOAD)
+    ctx = MeasureContext(cfg, TRAIN_SHAPE)
+    # one call after the warm-up suffices where a step outlasts the 5-s
+    # window (mamba2-1.3b, recurrentgemma-9b)
+    rung = MeasuredBackend(device="cuda", source=source, log=log,
+                           min_calls=1)
+    m = rung.measure(ctx, plan)
+    if not m.ok:
+        raise RuntimeError(f"{arch}: measured train trial failed: {m.error}")
+    check_window(f"{arch} train trial", m.trace.meta["counter"])
+    est = AnalyticBackend().measure(ctx, plan)
+    out["trial"] = {"s": m.seconds, "w": m.watts, "ws": m.energy_j,
+                    "peak_gb": m.peak_mem_per_chip / 1e9,
+                    "calls": m.trace.meta["calls"],
+                    "est_s": est.seconds, "est_w": est.watts,
+                    "est_ws": est.energy_j}
+    log(f"[train] {arch} measured train trial at {TRAIN_SHAPE}: "
+        f"{m.seconds:.4f} s, {m.watts:.2f} W, {m.energy_j:.2f} Ws a step "
+        f"(card-only; {m.trace.meta['calls']} steps in the window, peak "
+        f"{m.peak_mem_per_chip / 1e9:.2f} GB); analytic estimate "
+        f"{est.seconds:.4f} s, {est.watts:.2f} W, {est.energy_j:.2f} Ws; "
+        f"{smi}")
+    del rung, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["launches"] = {name: k.launches for name, k in counters.items()}
+    out["seconds"] = time.perf_counter() - t_start
+    log(f"kernels train {arch} " + json.dumps(out["launches"])
+        + f"; phase {out['seconds']:.1f} s")
+    missing = [k for k in TRAIN_KERNELS[arch] if not out["launches"][k]]
+    if missing:
+        raise RuntimeError(f"train {arch}: kernels of its path never "
+                           f"launched: {missing} ({out['launches']})")
+    return out
+
+
+def train_cli_child(root: str) -> int:
+    """The tiny-lm CLI on the card under the offload plan, deterministic
+    algorithms on (``CUBLAS_WORKSPACE_CONFIG`` set by the parent): an
+    uninterrupted run of CLI_STEPS steps, a run that fails at CLI_FAIL,
+    and its resume from the last checkpoint.  Prints one JSON line."""
+    from repro_torch.configs import get_config
+    from repro_torch.ft.driver import InjectedFailure
+    from repro_torch.kernels import flash_attention, swiglu
+    from repro_torch.launch import train as LT
+    from repro_torch.models.model import Model
+    torch.use_deterministic_algorithms(True)
+    cfg = get_config("tiny-lm")
+    model = Model(cfg, cfg.plan.replace(**OFFLOAD))
+    base = ["--arch", "tiny-lm", "--steps", str(CLI_STEPS), "--ckpt-every",
+            str(CLI_EVERY), "--log-every", "4"]
+    ref = LT.run(LT.parser().parse_args(
+        base + ["--ckpt-dir", f"{root}/ref"]), model=model)
+    failed = False
+    try:
+        LT.run(LT.parser().parse_args(
+            base + ["--ckpt-dir", f"{root}/ft", "--fail-at",
+                    str(CLI_FAIL)]), model=model)
+    except InjectedFailure:
+        failed = True
+    res = LT.run(LT.parser().parse_args(
+        base + ["--ckpt-dir", f"{root}/ft", "--resume"]), model=model)
+    print("CLI_RESULT " + json.dumps({
+        "ref": [r["loss"] for r in ref["losses"]],
+        "resumed_steps": [r["step"] for r in res["losses"]],
+        "resumed": [r["loss"] for r in res["losses"]], "failed": failed,
+        "launches": {"flash_attention": flash_attention.KERNEL.launches,
+                     "swiglu": swiglu.KERNEL.launches}}), flush=True)
+    return 0
+
+
+def phase_train_cli() -> dict:
+    """``launch.train.run`` on tiny-lm in a child process (deterministic
+    algorithms and their cuBLAS workspace stay out of the other phases):
+    the resumed losses equal the uninterrupted run's bit for bit, and the
+    loss falls."""
+    import os
+    import shutil
+    root = Path(__file__).resolve().parent / "artifacts" / "train_cli"
+    shutil.rmtree(root, ignore_errors=True)
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                           "--train-cli-child", str(root)],
+                          capture_output=True, text=True, env=env,
+                          timeout=600)
+    for line in proc.stdout.splitlines():
+        if not line.startswith("CLI_RESULT"):
+            log(f"[train-cli] {line}")
+    if proc.returncode:
+        raise RuntimeError(f"train CLI child exited {proc.returncode}: "
+                           f"{proc.stderr[-3000:]}")
+    res = json.loads(next(line for line in proc.stdout.splitlines()
+                          if line.startswith("CLI_RESULT"))[11:])
+    want = res["ref"][CLI_FAIL - CLI_FAIL % CLI_EVERY:]
+    if not res["failed"]:
+        raise RuntimeError("train CLI: the injected failure did not fire")
+    if res["resumed_steps"] != list(range(CLI_FAIL - CLI_FAIL % CLI_EVERY,
+                                          CLI_STEPS)):
+        raise RuntimeError(f"train CLI resumed at {res['resumed_steps']}")
+    if res["resumed"] != want:
+        raise RuntimeError(f"train CLI: resumed losses {res['resumed']} "
+                           f"differ from the uninterrupted {want}")
+    first, last = np.mean(res["ref"][:4]), np.mean(res["ref"][-4:])
+    if not last < first:
+        raise RuntimeError(f"train CLI: loss did not fall ({res['ref']})")
+    if not all(res["launches"].values()):
+        raise RuntimeError(f"train CLI: kernels never launched "
+                           f"({res['launches']})")
+    res["seconds"] = time.perf_counter() - t0
+    log(f"[train-cli] tiny-lm, offload plan, deterministic: {CLI_STEPS} "
+        f"steps, failure at {CLI_FAIL}, resumed from step "
+        f"{res['resumed_steps'][0]}: resumed losses equal the uninterrupted "
+        f"run's bit for bit; loss {first:.4f} -> {last:.4f} (mean of the "
+        f"first and last 4); launches {json.dumps(res['launches'])}; "
+        f"{res['seconds']:.1f} s")
+    return res
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -1881,6 +2342,19 @@ def main() -> int:
         del out
         torch.cuda.empty_cache()
     log(f"[arch] the seven archs: {time.perf_counter() - t_archs:.1f} s")
+    t_train = time.perf_counter()
+    phase_functions()
+    for arch in TRAIN_LAYERS:           # one model's weights at a time
+        out = run_train_path(arch, counters, source, card["smi"])
+        for name, n in out["launches"].items():
+            launches[name] += n
+        log(f"train {arch} " + json.dumps(out))
+        del out
+        torch.cuda.empty_cache()
+    cli = phase_train_cli()
+    for name, n in cli["launches"].items():
+        launches[name] += n
+    log(f"[train] the train phase: {time.perf_counter() - t_train:.1f} s")
     log("kernels " + json.dumps(launches))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 
@@ -1897,4 +2371,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--train-cli-child"]:
+        sys.exit(train_cli_child(sys.argv[2]))
     sys.exit(main())

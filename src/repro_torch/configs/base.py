@@ -3,9 +3,9 @@
 Every assigned architecture is an ``ArchConfig``; every workload shape is a
 ``ShapeSpec``.  The *execution plan* (``PlanConfig``) holds the knobs of the
 paper's offload search that the port reads: per-site destinations, the
-chunk size of chunked attention, and the dtypes.  The reference's sharding,
-remat, microbatching and gradient-compression knobs come with the slices
-that read them (ROADMAP.md).
+chunk size of chunked attention, the train step's remat policy,
+microbatching, gradient reduction and compression, and the dtypes.  The
+reference's sharding knobs come with the sharding slice (ROADMAP.md).
 
 The port reads the destination strings as: ``xla`` -> stock PyTorch ops,
 ``xla_chunked`` -> the chunked online-softmax PyTorch path, ``pallas`` ->
@@ -25,13 +25,16 @@ ATTN_IMPLS = ("xla", "xla_chunked", "pallas")
 MLP_IMPLS = ("xla", "pallas")
 SSM_IMPLS = ("xla", "pallas")
 RGLRU_IMPLS = ("xla", "pallas")
+REMATS = ("none", "dots", "full")
+GRAD_COMPRESS = ("none", "int8_ef")
 
 
 @dataclass(frozen=True)
 class PlanConfig:
     """One concrete execution plan (a decoded genome).
 
-    Per-site destinations mirror the paper's per-loop offload bits.
+    Per-site destinations mirror the paper's per-loop offload bits; the
+    train genes are the reference's, with its defaults.
     """
 
     # --- per-site destinations ("which loop goes to which device") ---------
@@ -41,10 +44,19 @@ class PlanConfig:
     rglru_impl: str = "xla"             # xla | pallas  (RG-LRU scan kernel)
     attn_chunk: int = 1024              # kv-block size for chunked attention
 
+    # --- memory / schedule genes (the train step) ---------------------------
+    remat: str = "full"                 # none | dots | full
+    microbatches: int = 1               # gradient-accumulation steps
+
+    # --- transfer-batching analogue (paper §3.1) -----------------------------
+    fused_grad_reduce: bool = True      # single fused reduction vs per-layer
+    grad_compress: str = "none"         # none | int8_ef (error feedback)
+
     # --- numerics -----------------------------------------------------------
     compute_dtype: str = "bfloat16"
     param_dtype: str = "float32"
     kv_cache_dtype: str = "bfloat16"
+    accum_dtype: str = "float32"        # microbatch gradient accumulator
 
     def __post_init__(self) -> None:
         if self.attn_impl not in ATTN_IMPLS:
@@ -57,6 +69,13 @@ class PlanConfig:
         if self.rglru_impl not in RGLRU_IMPLS:
             raise ValueError(f"rglru_impl {self.rglru_impl!r} not in "
                              f"{RGLRU_IMPLS}")
+        if self.remat not in REMATS:
+            raise ValueError(f"remat {self.remat!r} not in {REMATS}")
+        if self.grad_compress not in GRAD_COMPRESS:
+            raise ValueError(f"grad_compress {self.grad_compress!r} not in "
+                             f"{GRAD_COMPRESS}")
+        if self.microbatches < 1:
+            raise ValueError(f"microbatches {self.microbatches} < 1")
 
     def replace(self, **kw: Any) -> "PlanConfig":
         return replace(self, **kw)
@@ -98,6 +117,7 @@ SHAPES: dict[str, ShapeSpec] = {
 #: out of SHAPES so ``ArchConfig.applicable_shapes`` match the
 #: reference's.
 CARD_SHAPES: dict[str, ShapeSpec] = {
+    "train_4k_b4": ShapeSpec("train_4k_b4", 4096, 4, "train"),
     "prefill_32k_b1": ShapeSpec("prefill_32k_b1", 32768, 1, "prefill"),
     "decode_32k_b8": ShapeSpec("decode_32k_b8", 32768, 8, "decode"),
 }

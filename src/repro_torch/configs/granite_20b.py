@@ -21,6 +21,7 @@ FULL = ArchConfig(
     act="gelu",
     norm="layernorm",
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
+    plan=PlanConfig(remat="full", microbatches=8),
 )
 
 REDUCED = ArchConfig(
@@ -34,7 +35,7 @@ REDUCED = ArchConfig(
     vocab_size=128,
     act="gelu",
     norm="layernorm",
-    plan=PlanConfig(attn_chunk=32),
+    plan=PlanConfig(remat="none", attn_chunk=32),
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
 )
 

@@ -20,6 +20,7 @@ FULL = ArchConfig(
     vocab_size=49155,
     moe=MoEConfig(n_experts=32, top_k=8, d_ff_expert=512),
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
+    plan=PlanConfig(remat="full", microbatches=4),
 )
 
 REDUCED = ArchConfig(
@@ -32,7 +33,7 @@ REDUCED = ArchConfig(
     d_ff=96,
     vocab_size=128,
     moe=MoEConfig(n_experts=8, top_k=4, d_ff_expert=96),
-    plan=PlanConfig(attn_chunk=32),
+    plan=PlanConfig(remat="none", attn_chunk=32),
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
 )
 

@@ -24,6 +24,7 @@ FULL = ArchConfig(
     is_encoder=True,
     frontend="audio_frames",
     skip_shapes={**ENCODER_SKIPS, **FULL_ATTENTION_SKIPS},
+    plan=PlanConfig(remat="full", microbatches=2),
 )
 
 REDUCED = ArchConfig(
@@ -39,7 +40,7 @@ REDUCED = ArchConfig(
     norm="layernorm",
     is_encoder=True,
     frontend="audio_frames",
-    plan=PlanConfig(attn_chunk=32),
+    plan=PlanConfig(remat="none", attn_chunk=32),
     skip_shapes={**ENCODER_SKIPS, **FULL_ATTENTION_SKIPS},
 )
 

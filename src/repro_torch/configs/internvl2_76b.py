@@ -24,6 +24,7 @@ FULL = ArchConfig(
     n_patches=256,
     optimizer="adafactor",
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
+    plan=PlanConfig(remat="full", microbatches=8),
 )
 
 REDUCED = ArchConfig(
@@ -37,7 +38,7 @@ REDUCED = ArchConfig(
     vocab_size=128,
     frontend="vision_patches",
     n_patches=8,
-    plan=PlanConfig(attn_chunk=32),
+    plan=PlanConfig(remat="none", attn_chunk=32),
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
 )
 

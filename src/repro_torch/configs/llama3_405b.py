@@ -22,7 +22,8 @@ FULL = ArchConfig(
     vocab_size=128256,
     rope_theta=500_000.0,
     optimizer="adafactor",
-    plan=PlanConfig(attn_chunk=512, param_dtype="bfloat16"),
+    plan=PlanConfig(remat="full", microbatches=16, attn_chunk=512,
+                    param_dtype="bfloat16", accum_dtype="bfloat16"),
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
 )
 
@@ -36,7 +37,7 @@ REDUCED = ArchConfig(
     d_ff=192,
     vocab_size=128,
     optimizer="adafactor",
-    plan=PlanConfig(attn_chunk=32),
+    plan=PlanConfig(remat="none", attn_chunk=32, microbatches=2),
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
 )
 

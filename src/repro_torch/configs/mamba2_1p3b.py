@@ -6,7 +6,7 @@
 5.4 GB in the f32 ``param_dtype``.  The plan has no attention sites; the
 'pallas' destination of ``ssm_impl`` is the SSD kernel.
 """
-from repro_torch.configs.base import ArchConfig, register
+from repro_torch.configs.base import ArchConfig, PlanConfig, register
 
 FULL = ArchConfig(
     name="mamba2-1.3b",
@@ -23,6 +23,7 @@ FULL = ArchConfig(
     ssm_conv=4,
     ssm_chunk=256,
     tie_embeddings=True,
+    plan=PlanConfig(remat="full", microbatches=4),
 )
 
 REDUCED = ArchConfig(
@@ -40,6 +41,7 @@ REDUCED = ArchConfig(
     ssm_conv=4,
     ssm_chunk=16,
     tie_embeddings=True,
+    plan=PlanConfig(remat="none"),
 )
 
 register(FULL, REDUCED)

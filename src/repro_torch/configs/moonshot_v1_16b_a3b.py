@@ -20,6 +20,7 @@ FULL = ArchConfig(
     vocab_size=163840,
     moe=MoEConfig(n_experts=64, top_k=6, d_ff_expert=1408),
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
+    plan=PlanConfig(remat="full", microbatches=8),
 )
 
 REDUCED = ArchConfig(
@@ -32,7 +33,7 @@ REDUCED = ArchConfig(
     d_ff=96,
     vocab_size=128,
     moe=MoEConfig(n_experts=8, top_k=2, d_ff_expert=96),
-    plan=PlanConfig(attn_chunk=32),
+    plan=PlanConfig(remat="none", attn_chunk=32),
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
 )
 

@@ -19,6 +19,7 @@ FULL = ArchConfig(
     qkv_bias=True,
     rope_theta=1_000_000.0,
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
+    plan=PlanConfig(remat="full", microbatches=4),
 )
 
 REDUCED = ArchConfig(
@@ -31,7 +32,7 @@ REDUCED = ArchConfig(
     d_ff=160,
     vocab_size=128,
     qkv_bias=True,
-    plan=PlanConfig(attn_chunk=32),
+    plan=PlanConfig(remat="none", attn_chunk=32),
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
 )
 

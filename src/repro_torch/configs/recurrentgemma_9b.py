@@ -21,6 +21,7 @@ FULL = ArchConfig(
     layer_pattern=("rec", "rec", "attn"),
     local_window=2048,
     lru_width=4096,
+    plan=PlanConfig(remat="full", microbatches=4),
 )
 
 REDUCED = ArchConfig(
@@ -36,7 +37,7 @@ REDUCED = ArchConfig(
     layer_pattern=("rec", "rec", "attn"),
     local_window=32,
     lru_width=64,
-    plan=PlanConfig(attn_chunk=32),
+    plan=PlanConfig(remat="none", attn_chunk=32),
 )
 
 register(FULL, REDUCED)

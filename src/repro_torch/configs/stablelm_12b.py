@@ -19,6 +19,7 @@ FULL = ArchConfig(
     d_ff=13824,
     vocab_size=100352,
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
+    plan=PlanConfig(remat="full", microbatches=4),
 )
 
 REDUCED = ArchConfig(
@@ -30,7 +31,7 @@ REDUCED = ArchConfig(
     n_kv_heads=2,
     d_ff=160,
     vocab_size=128,
-    plan=PlanConfig(attn_chunk=32),
+    plan=PlanConfig(remat="none", attn_chunk=32),
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
 )
 

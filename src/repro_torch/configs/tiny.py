@@ -15,7 +15,7 @@ TINY_LM = ArchConfig(
     n_kv_heads=4,
     d_ff=2048,
     vocab_size=32000,
-    plan=PlanConfig(attn_chunk=256),
+    plan=PlanConfig(remat="none", attn_chunk=256),
     learning_rate=6e-4,
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
 )
@@ -29,7 +29,7 @@ TINY_LM_FAST = ArchConfig(
     n_kv_heads=2,
     d_ff=1024,
     vocab_size=8192,
-    plan=PlanConfig(attn_chunk=128),
+    plan=PlanConfig(remat="none", attn_chunk=128),
     learning_rate=1e-3,
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
 )
@@ -43,7 +43,7 @@ TINY_TEST = ArchConfig(
     n_kv_heads=2,
     d_ff=64,
     vocab_size=64,
-    plan=PlanConfig(attn_chunk=16),
+    plan=PlanConfig(remat="none", attn_chunk=16),
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
 )
 

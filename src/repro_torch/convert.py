@@ -9,6 +9,11 @@ returns the ``state_dict`` of ``models.transformer.Transformer`` on the CPU
 (``Model.load`` moves it to the model's device).  This is how the tests put
 the same weights into both packages: the two have different random
 generators, so they are never compared by seed.
+
+``leaf_groups(cfg)`` maps each leaf of that pytree, in the reference's leaf
+order, to the port's parameter names it stacks (the ``scan`` leaves: one
+name per full unit, in unit order).  The optimizers and the gradient
+compression keep their state and statistics per reference leaf through it.
 """
 from __future__ import annotations
 
@@ -16,7 +21,8 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models.transformer import check_supported
+from repro_torch.models.transformer import (_norm_spec, check_supported,
+                                            layer_spec, unit_structure)
 
 
 def _tensor(arr) -> torch.Tensor:
@@ -56,3 +62,42 @@ def params_from_jax(cfg: ArchConfig, tree: dict) -> dict:
         raise ValueError(f"tree holds {layer} layers, config has "
                          f"{cfg.n_layers}")
     return state
+
+
+def leaf_groups(cfg: ArchConfig) -> list[tuple[str, list[str]]]:
+    """[(reference leaf path, the port's parameter names)] in the order
+    ``jax.tree.leaves`` walks the reference's params (dict keys sorted).
+    A ``scan/l<u>/...`` leaf stacks layer ``li * size + u`` of each full
+    unit ``li``; every other leaf is one parameter."""
+    check_supported(cfg)
+    kinds = cfg.layer_kinds()
+    size, n_full = unit_structure(cfg)
+    top: dict = {"embed": ["embed"],
+                 "final_norm": {k: [f"final_norm.{k}"]
+                                for k in _norm_spec(cfg)}}
+    if not cfg.tie_embeddings:
+        top["lm_head"] = ["lm_head"]
+    if cfg.frontend == "audio_frames":
+        top["frontend"] = ["frontend"]
+
+    def layer(rows: list[int]) -> dict:
+        return {name: {k: [f"layers.{i}.{name}.{k}" for i in rows]
+                       for k in params}
+                for name, params in layer_spec(cfg, kinds[rows[0]]).items()}
+    if n_full:
+        top["scan"] = {f"l{u}": layer([li * size + u for li in range(n_full)])
+                       for u in range(size)}
+    tail = range(n_full * size, len(kinds))
+    if len(tail):
+        top["tail"] = {f"t{j}": layer([i]) for j, i in enumerate(tail)}
+
+    out: list = []
+
+    def walk(prefix: str, node) -> None:
+        if isinstance(node, list):
+            out.append((prefix, node))
+            return
+        for k in sorted(node):
+            walk(f"{prefix}/{k}" if prefix else k, node[k])
+    walk("", top)
+    return out

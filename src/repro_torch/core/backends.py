@@ -12,7 +12,8 @@ cost:
     ``synthesize_phase_trace``: milliseconds per pattern, the GA inner
     loop's rung.
   * ``measured`` — one real trial on the card: the plan's model runs the
-    shape's prefill or decode, timed on the wall clock, its energy read
+    shape's prefill, decode or train step, timed on the wall clock, its
+    energy read
     from the card's NVML counter through the sampler.  This is the paper's
     own verification step, and takes the place of the reference's
     compiled rung (a 512-device dry-run, which comes with the sharding
@@ -246,17 +247,22 @@ class MeasuredBackend:
     The plan's ``Model`` runs the shape's kind: prefill runs
     ``Model.prefill`` on the shape's batch; decode runs ``decode_steps``
     steps from a cache whose first ``seq_len - decode_steps`` positions
-    hold seeded random values (a step's cost does not depend on them).
-    Parameters come from one seeded generator per architecture, shared
-    across plans (a plan changes no parameter); ``params`` may hold loaded
-    ones, by arch name.
+    hold seeded random values (a step's cost does not depend on them);
+    train runs whole train steps (loss, backward, the arch's optimizer:
+    ``train.step.make_train_step``) on seeded random tokens.  Parameters
+    come from one seeded generator per architecture, shared across plans
+    (a plan changes no parameter); ``params`` may hold loaded ones, by
+    arch name.  A train trial makes its own parameters and optimizer state
+    from ``seed`` and updates only those: it never touches weights that
+    another trial or a serving phase reads.
 
     One warm-up call, then calls back to back under ``source`` (the card's
     ``NvmlSource`` by default) until at least ``min_calls`` calls and
     ``window_s`` seconds: ``seconds`` is the median call, ``watts`` the
     window's mean draw, ``energy_j`` the window's integral over its calls.
-    The last call's logits must be finite (else it raises) and are kept in
-    ``outputs`` by plan tag, so trials of two plans can be compared.
+    The last call's logits (a train step's: its loss) must be finite
+    (else it raises) and are kept in ``outputs`` by plan tag, so trials of
+    two plans can be compared.
     The trace is the window's with its time axis divided by the calls, so
     it integrates to ``energy_j`` and keeps the measured watts; its meta
     holds the window, the counter's own difference beside the integral
@@ -281,7 +287,8 @@ class MeasuredBackend:
     decode_steps: int = 16
     record_dir: Optional[Path] = None   # persist traces for the replay rung
     log: Optional[Callable[[str], None]] = None
-    #: plan tag -> the last position's logits of its last trial call
+    #: plan tag -> the last position's logits of its last trial call (a
+    #: train trial's: the loss of its last step)
     outputs: dict = field(default_factory=dict)
 
     def weights(self, model):
@@ -308,6 +315,8 @@ class MeasuredBackend:
         sync = (lambda: torch.cuda.synchronize(dev)) \
             if dev.type == "cuda" else (lambda: None)
         b, s = shape.global_batch, shape.seq_len
+        if shape.kind == "train":
+            return self._train_trial(model, shape, dev, rng, sync)
         cache = model.init_cache(b, s)
         if shape.kind == "prefill":
             toks = torch.from_numpy(rng.integers(
@@ -320,9 +329,7 @@ class MeasuredBackend:
                 return logits
             return call
         if shape.kind != "decode":
-            raise NotImplementedError(
-                f"{shape.kind} shapes: training is not ported yet "
-                f"(ROADMAP.md, section A item 5)")
+            raise ValueError(f"unknown shape kind {shape.kind!r}")
         n = self.decode_steps
         s0 = max(s - n, 0)
         gen = torch.Generator(device=dev).manual_seed(self.seed)
@@ -340,6 +347,30 @@ class MeasuredBackend:
             return logits
         return call
 
+    def _train_trial(self, model, shape: ShapeSpec, dev: torch.device,
+                     rng: np.random.Generator,
+                     sync) -> Callable[[], torch.Tensor]:
+        """One call is one train step on the trial's own parameters and
+        optimizer state (made from ``seed``); it returns the step's loss."""
+        from repro_torch.train.step import make_opt_init, make_train_step
+        cfg = model.cfg
+        gen = torch.Generator(device=dev).manual_seed(self.seed)
+        state = {"params": model.init(gen)}
+        state["opt"] = make_opt_init(model)(state["params"])
+        step = make_train_step(model)
+        toks = torch.from_numpy(rng.integers(
+            0, cfg.vocab_size, (shape.global_batch, shape.seq_len + 1))
+            .astype(np.int32)).to(dev)
+        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+        def call() -> torch.Tensor:
+            state["params"], state["opt"], metrics = step(
+                state["params"], state["opt"], batch)
+            loss = metrics["loss"].reshape(1).clone()
+            sync()
+            return loss
+        return call
+
     def measure(self, ctx: MeasureContext,
                 plan: PlanConfig) -> Measurement:
         from repro_torch.models.model import Model
@@ -347,7 +378,8 @@ class MeasuredBackend:
         shape = ctx.shape
         cfg = dataclasses.replace(ctx.cfg, plan=plan)
         model = Model(cfg, plan, dev)
-        params = self.weights(model)
+        # a train trial makes its own weights (_train_trial)
+        params = self.weights(model) if shape.kind != "train" else None
         source = self.power_source(dev)
         if dev.type == "cuda":
             torch.cuda.synchronize(dev)
@@ -396,8 +428,9 @@ class MeasuredBackend:
                     for k in PLAN_KERNELS.values()}
         logits = last[0].float().cpu()
         if not torch.isfinite(logits).all():
+            what = "loss" if shape.kind == "train" else "logits"
             raise RuntimeError(f"plan {plan_tag(plan)} gave non-finite "
-                               f"logits on {ctx.cfg.name} {ctx.shape_name}")
+                               f"{what} on {ctx.cfg.name} {ctx.shape_name}")
         self.outputs[plan_tag(plan)] = logits
         trace = _per_call_trace(win.trace, win.calls)
         trace.meta.update({

@@ -1,9 +1,9 @@
 """Arithmetic-intensity analysis + loop census + analytic program estimator.
 
 Counterpart of ``repro.core.intensity``: ``site_census`` is copied op for
-op; ``estimate_program`` for prefill and decode, on the port's plans, which
-have no tensor parallelism (``tp = 1``).  A train shape raises: training
-is ROADMAP.md §A item 5.  ``SiteStats.vmem_working_set`` keeps the
+op; ``estimate_program`` for train, prefill and decode, on the port's
+plans, which have no tensor parallelism (``tp = 1``) and no FSDP (the
+reference with ``use_tp=False, fsdp=False``).  ``SiteStats.vmem_working_set`` keeps the
 reference's figure (the twin tests hold the census equal); the card's
 resource pre-check in ``core.narrowing`` asks the kernels instead.
 
@@ -159,27 +159,58 @@ class Estimate:
 
 def estimate_program(cfg: ArchConfig, shape: ShapeSpec, plan: PlanConfig,
                      n_chips: int, tp: int = 1) -> Estimate:
-    """Analytic forward roofline inputs for one prefill or decode step.
+    """Analytic forward(+backward) roofline inputs for one step.
 
     ``tp`` is kept for the reference's signature; the port's plans carry
-    no tensor parallelism, so it is 1 whatever is passed (the reference
-    with ``use_tp=False``)."""
-    if shape.kind == "train":
-        raise NotImplementedError(
-            "train shapes: training is not ported yet (ROADMAP.md, section "
-            "A item 5)")
+    no tensor parallelism and no FSDP, so it is 1 whatever is passed and
+    the FSDP gathers are 0 (the reference with ``use_tp=False,
+    fsdp=False``)."""
     sites = site_census(cfg, shape, plan)
     fwd_flops = sum(s.flops for s in sites)
     fwd_hbm = sum(s.hbm_bytes for s in sites)
     cdt = _dt_bytes(plan.compute_dtype)
     pdt = _dt_bytes(plan.param_dtype)
     n_params = cfg.param_count()
+    n_active = cfg.active_param_count()
     d = cfg.d_model
     tp = 1
     dp = max(n_chips // tp, 1)
 
     est = Estimate()
     est.breakdown = {s.name: s.flops for s in sites}
+
+    if shape.kind == "train":
+        remat_mult = {"none": 3.0, "dots": 3.5, "full": 4.0}[plan.remat]
+        est.flops = fwd_flops * remat_mult
+        opt_traffic = n_params * (pdt + 2 * F32)        # read p, rw stats
+        grad_traffic = n_params * _dt_bytes(plan.accum_dtype) * 2 \
+            * plan.microbatches
+        est.hbm_bytes = fwd_hbm * remat_mult + opt_traffic + grad_traffic
+        # collectives (per chip): the DP gradient reduction only (no TP
+        # activation reductions, no FSDP gathers)
+        t_tok = shape.tokens
+        gdt = 1 if plan.grad_compress == "int8_ef" else \
+            _dt_bytes(plan.accum_dtype)
+        est.coll_bytes = 2.0 * (n_active / tp) * gdt * (1.0 - 1.0 / dp)
+        est.coll_ops = 2 if plan.fused_grad_reduce else 2 * cfg.n_layers
+        # memory: params + opt + grads + stash
+        stash = (t_tok / n_chips) * d * cdt * cfg.n_layers \
+            / max(plan.microbatches, 1)
+        if plan.remat == "none":
+            # full intra-layer stash; SSM/hybrid layers save far more (the
+            # reference's multipliers)
+            stash *= {"ssm": 24.0, "hybrid": 16.0}.get(cfg.family, 8.0)
+        elif plan.remat == "dots":
+            stash *= {"ssm": 12.0, "hybrid": 8.0}.get(cfg.family, 3.0)
+        opt_mem = {"adamw": 2 * F32, "adafactor": 0.02 * F32,
+                   "adam8": 2 * 1.25}[cfg.optimizer] * n_params / n_chips
+        est.peak_mem_per_chip = (n_params * pdt / n_chips
+                                 + n_params
+                                 * _dt_bytes(plan.accum_dtype) / n_chips
+                                 + opt_mem + stash
+                                 + 2 * n_params * cdt / (cfg.n_layers * tp))
+        return est
+
     est.flops = fwd_flops
     est.hbm_bytes = fwd_hbm
     t_tok = shape.global_batch if shape.kind == "decode" else shape.tokens

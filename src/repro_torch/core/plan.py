@@ -2,11 +2,10 @@
 
 Counterpart of ``repro.core.plan``.  ``GENES`` keeps the reference's genes
 that the port's ``PlanConfig`` has (the four site destinations, the chunk
-of chunked attention, the KV cache dtype), with the same alleles and
-applicability predicates.  The sharding genes (``fsdp``, ``seq_shard``,
-``use_tp``, ``overlap_collectives``) come with the sharding slice, the
-train genes (``remat``, ``microbatches``, ``fused_grad_reduce``,
-``grad_compress``) with the training slice (ROADMAP.md).
+of chunked attention, the KV cache dtype and the four train genes), with
+the same alleles and applicability predicates.  The sharding genes
+(``fsdp``, ``seq_shard``, ``use_tp``, ``overlap_collectives``) come with
+the sharding slice (ROADMAP.md §A item 4).
 
 The paper geneticizes one bit per parallelizable loop (1 = offload to GPU,
 0 = CPU).  Here the decision space is the execution plan of a model on the
@@ -35,8 +34,12 @@ GENES: dict[str, tuple[tuple, Any]] = {
     "ssm_impl": (("xla", "pallas"), lambda cfg, kind: cfg.family == "ssm"),
     "rglru_impl": (("xla", "pallas"),
                    lambda cfg, kind: cfg.family == "hybrid"),
+    "remat": (("none", "dots", "full"), lambda cfg, kind: kind == "train"),
+    "microbatches": ((1, 2, 4, 8, 16), lambda cfg, kind: kind == "train"),
     "attn_chunk": ((256, 512, 1024, 2048),
                    lambda cfg, kind: cfg.n_heads > 0),
+    "fused_grad_reduce": ((False, True), lambda cfg, kind: kind == "train"),
+    "grad_compress": (("none", "int8_ef"), lambda cfg, kind: kind == "train"),
     "kv_cache_dtype": (("bfloat16", "float32", "int8"),
                        lambda cfg, kind: kind in ("prefill", "decode")
                        and cfg.n_heads > 0),

@@ -7,12 +7,18 @@ fallback.  The reference's "fall back to the oracle when a block is < 8"
 rule existed for TPU tiling and is not carried over: the CUDA kernels mask
 ragged edges, so decode batches of any size reach them.
 
-No ``torch.autograd.Function`` yet: this slice serves.  The reference's
-VJPs (the backward through the oracle) come with the training slice.
+``flash_attention``, ``fused_swiglu``, ``ssd`` and ``rglru`` are each a
+``torch.autograd.Function``, as the reference's ops are each a
+``jax.custom_vjp``: the forward is the kernel (the plain version on the
+CPU), the backward differentiates the plain version rematerialized from
+the saved inputs — so the 'pallas' destination trains as well as it
+serves.  ``mriq`` has no backward, as in the reference.
 """
 from __future__ import annotations
 
 import math
+
+import torch
 
 from repro_torch.device import same_device
 from repro_torch.kernels import ref as _ref
@@ -32,12 +38,39 @@ def _blk(n: int, target: int) -> int:
     return b
 
 
+def _plain_vjp(fn, saved, grads):
+    """The backward of a Function: ``fn`` (a plain version) re-run on
+    detached copies of the ``saved`` inputs under autograd, and its
+    gradients with respect to each input for the output cotangents
+    ``grads`` — the reference's ``jax.vjp`` of its oracle."""
+    xs = [t.detach().requires_grad_() for t in saved]
+    with torch.enable_grad():
+        out = fn(*xs)
+    out = out if isinstance(out, tuple) else (out,)
+    return torch.autograd.grad(out, xs, grads, allow_unused=True)
+
+
+class _Flash(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal, ctx.window = causal, window
+        if same_device(q, k, v).type == "cpu":
+            return _ref.flash_attention_ref(q, k, v, causal, window)
+        return flash_attention_cuda(q.contiguous(), k.contiguous(),
+                                    v.contiguous(), causal, window)
+
+    @staticmethod
+    def backward(ctx, g):
+        fn = lambda q, k, v: _ref.flash_attention_ref(  # noqa: E731
+            q, k, v, ctx.causal, ctx.window)
+        return (*_plain_vjp(fn, ctx.saved_tensors, (g,)), None, None)
+
+
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
-    """q (B,S,Hq,D); k, v (B,T,Hkv,D) -> (B,S,Hq,D)."""
-    if same_device(q, k, v).type == "cpu":
-        return _ref.flash_attention_ref(q, k, v, causal, window)
-    return flash_attention_cuda(q.contiguous(), k.contiguous(),
-                                v.contiguous(), causal, window)
+    """q (B,S,Hq,D); k, v (B,T,Hkv,D) -> (B,S,Hq,D).  ``causal`` and
+    ``window`` are not differentiated."""
+    return _Flash.apply(q, k, v, causal, window)
 
 
 def mriq(kx, ky, kz, phi_mag, x, y, z):
@@ -48,34 +81,72 @@ def mriq(kx, ky, kz, phi_mag, x, y, z):
     return mriq_cuda(*(a.contiguous() for a in args))
 
 
+class _Swiglu(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, xf, wi, wg, wo):
+        ctx.save_for_backward(xf, wi, wg, wo)
+        if same_device(xf, wi, wg, wo).type == "cpu":
+            return _ref.swiglu_ref(xf, wi, wg, wo)
+        return swiglu_cuda(xf.contiguous(), wi.contiguous(),
+                           wg.contiguous(), wo.contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return _plain_vjp(_ref.swiglu_ref, ctx.saved_tensors, (g,))
+
+
 def fused_swiglu(x, wi, wg, wo):
-    """x (..., d) -> (..., d); flattens leading dims for the kernel."""
+    """x (..., d) -> (..., d); flattens leading dims for the kernel (and
+    its backward, as the reference's, works on the flattened (T, d))."""
     lead = x.shape[:-1]
     d = x.shape[-1]
-    xf = x.reshape(math.prod(lead), d)
-    if same_device(x, wi, wg, wo).type == "cpu":
-        y = _ref.swiglu_ref(xf, wi, wg, wo)
-    else:
-        y = swiglu_cuda(xf.contiguous(), wi.contiguous(), wg.contiguous(),
-                        wo.contiguous())
+    y = _Swiglu.apply(x.reshape(math.prod(lead), d), wi, wg, wo)
     return y.reshape(*lead, d)
+
+
+class _Rglru(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, log_a, b):
+        ctx.save_for_backward(log_a, b)
+        if same_device(log_a, b).type == "cpu":
+            return _ref.rglru_ref(log_a, b)
+        return rglru_cuda(log_a.float().contiguous(), b.float().contiguous())
+
+    @staticmethod
+    def backward(ctx, g):
+        return _plain_vjp(_ref.rglru_ref, ctx.saved_tensors, (g.float(),))
 
 
 def rglru(log_a, b):
     """log_a, b (B,S,W) -> h (B,S,W) f32: h_t = exp(log_a_t) h_{t-1} +
-    b_t."""
-    if same_device(log_a, b).type == "cpu":
-        return _ref.rglru_ref(log_a, b)
-    return rglru_cuda(log_a.float().contiguous(), b.float().contiguous())
+    b_t.  The backward takes the cotangent in f32, as the reference's."""
+    return _Rglru.apply(log_a, b)
+
+
+class _Ssd(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, chunk):
+        ctx.save_for_backward(x, dt, A, Bm, Cm)
+        ctx.chunk = chunk
+        q = _blk(x.shape[1], chunk)
+        if same_device(x, dt, A, Bm, Cm).type == "cpu":
+            return _ref.ssd_ref(x, dt, A, Bm, Cm, q)
+        return ssd_cuda(x.contiguous(), dt.float().contiguous(),
+                        A.float().contiguous(), Bm.to(x.dtype).contiguous(),
+                        Cm.to(x.dtype).contiguous(), q)
+
+    @staticmethod
+    def backward(ctx, gy, gstate):
+        # the reference differentiates its oracle at the chunk it was
+        # given (not the one the forward picked): the same function
+        fn = lambda *a: _ref.ssd_ref(*a, max(ctx.chunk, 1))  # noqa: E731
+        return (*_plain_vjp(fn, ctx.saved_tensors, (gy, gstate)), None)
 
 
 def ssd(x, dt, A, Bm, Cm, chunk: int = 128):
     """Mamba2 SSD: x (B,S,H,P), dt (B,S,H), A (H,), Bm/Cm (B,S,N) ->
     (y (B,S,H,P) in x's dtype, final state (B,H,P,N) f32), in chunks of
-    ``_blk(S, chunk)`` positions as the reference picks them."""
-    q = _blk(x.shape[1], chunk)
-    if same_device(x, dt, A, Bm, Cm).type == "cpu":
-        return _ref.ssd_ref(x, dt, A, Bm, Cm, q)
-    return ssd_cuda(x.contiguous(), dt.float().contiguous(),
-                    A.float().contiguous(), Bm.to(x.dtype).contiguous(),
-                    Cm.to(x.dtype).contiguous(), q)
+    ``_blk(S, chunk)`` positions as the reference picks them.  ``chunk`` is
+    not differentiated; an unused final state's cotangent arrives as
+    zeros."""
+    return _Ssd.apply(x, dt, A, Bm, Cm, chunk)

@@ -16,6 +16,16 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
 
 
+def cross_entropy(logits, targets):
+    """Mean next-token CE in f32. logits (B,S,V), targets (B,S).  The
+    target's logit is a gather (one card: no vocab-sharded logits to keep
+    sharded, which the reference's iota-compare is for)."""
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    return (lse - ll).mean()
+
+
 class Model:
     def __init__(self, cfg: ArchConfig, plan: Optional[PlanConfig] = None,
                  device: DeviceLike = None):
@@ -49,12 +59,24 @@ class Model:
         """Teacher-forced logits (B,S,V) over the whole batch."""
         return T.forward(params, batch, self.cfg, self.plan)[0]
 
+    def loss(self, params: T.Transformer, batch: dict):
+        """(loss, {"ce", "aux"}): the mean next-token cross-entropy of
+        ``batch["targets"]`` plus 0.01 x the summed MoE aux loss."""
+        logits, _, aux = T.forward(params, batch, self.cfg, self.plan)
+        ce = cross_entropy(logits, batch["targets"])
+        loss = ce + 0.01 * aux
+        return loss, {"ce": ce, "aux": aux}
+
+    # serving builds no autograd graph: the parameters are frozen
+    # (``requires_grad=False``) outside a train step, which turns them on
+    # for its own step only (``train.step``)
+
     def prefill(self, params: T.Transformer, batch: dict, cache: list):
-        logits, cache = T.forward(params, batch, self.cfg, self.plan,
-                                  cache=cache)
+        logits, cache, _ = T.forward(params, batch, self.cfg, self.plan,
+                                     cache=cache)
         return logits[:, -1], cache
 
     def decode_step(self, params: T.Transformer, batch: dict, cache: list):
-        logits, cache = T.forward(params, batch, self.cfg, self.plan,
-                                  cache=cache, decode=True)
+        logits, cache, _ = T.forward(params, batch, self.cfg, self.plan,
+                                     cache=cache, decode=True)
         return logits[:, -1], cache

@@ -217,10 +217,13 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
 
 def apply_layer(p: Layer, x, cfg: ArchConfig, plan: PlanConfig, positions,
                 cache, decode: bool):
+    """One layer: returns (x, cache, aux), aux the MoE layer's load-balance
+    loss (0 elsewhere), as the reference's ``apply_layer``."""
+    aux = x.new_zeros((), dtype=torch.float32)
     h = L.apply_norm(p.norm1, x, cfg)
     if p.kind == "ssm":
         mix, cache = S.run_mamba2(p.mixer, h, cfg, plan, cache, decode)
-        return x + mix, cache
+        return x + mix, cache, aux
     if p.kind == "rec":
         mix, cache = R.run_rglru_block(p.mixer, h, cfg, plan, cache, decode)
     else:
@@ -229,11 +232,52 @@ def apply_layer(p: Layer, x, cfg: ArchConfig, plan: PlanConfig, positions,
     x = x + mix
     h = L.apply_norm(p.norm2, x, cfg)
     if hasattr(p, "moe"):
-        # the aux loss is summed into a loss by training (not ported)
-        ff, _aux = L.run_moe(p.moe, h, cfg, plan)
+        ff, aux = L.run_moe(p.moe, h, cfg, plan)
     else:
         ff = L.run_mlp(p.mlp, h, cfg, plan)
-    return x + ff, cache
+    return x + ff, cache, aux
+
+
+def unit_structure(cfg: ArchConfig) -> tuple[int, int]:
+    """(layers a unit, full units): the reference's ``unit_structure``
+    (the arch's layer pattern, else one layer, repeated; the layers past
+    the last full unit are its unrolled tail)."""
+    kinds = cfg.layer_kinds()
+    size = len(cfg.layer_pattern) if cfg.family == "hybrid" \
+        and cfg.layer_pattern else 1
+    return size, len(kinds) // size
+
+
+#: the ops whose outputs ``remat="dots"`` keeps (``checkpoint_dots``: the
+#: matrix products); every other activation is recomputed
+DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+           torch.ops.aten.addmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    from torch.utils.checkpoint import CheckpointPolicy
+    return CheckpointPolicy.MUST_SAVE if op in DOT_OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn, plan: PlanConfig, grad: bool):
+    """``fn`` under the plan's remat policy, as the reference's
+    ``_remat_wrap``: ``none`` keeps every activation, ``full`` recomputes
+    the unit's forward in the backward, ``dots`` keeps the matrix products
+    and recomputes the rest.  Without autograd (serving) there is nothing
+    to keep, and ``fn`` runs as it is."""
+    if plan.remat == "none" or not grad:
+        return fn
+    from torch.utils.checkpoint import (checkpoint,
+                                        create_selective_checkpoint_contexts)
+
+    def wrapped(*args):
+        kw = {}
+        if plan.remat == "dots":
+            kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+                _save_dots)
+        return checkpoint(fn, *args, use_reentrant=False, **kw)
+    return wrapped
 
 
 def embed_inputs(params: Transformer, batch: dict, cfg: ArchConfig,
@@ -261,7 +305,8 @@ def embed_inputs(params: Transformer, batch: dict, cfg: ArchConfig,
 def forward(params: Transformer, batch: dict, cfg: ArchConfig,
             plan: PlanConfig, cache: Optional[list] = None,
             decode: bool = False):
-    """Returns (logits, cache).
+    """Returns (logits, cache, aux), aux the summed MoE load-balance loss
+    (f32, 0 without MoE layers).
 
     train:   cache=None, decode=False  -> logits (B,S,V)
     prefill: cache=list, decode=False  -> logits (B,S,V) + filled cache
@@ -271,7 +316,8 @@ def forward(params: Transformer, batch: dict, cfg: ArchConfig,
     (audio: ``batch["features"]`` (B,S,d); vision: also
     ``batch["patch_embeds"]``, see ``embed_inputs``); in decode
     ``batch["pos"]`` (an int or a 0-d tensor) is the position of the whole
-    batch.
+    batch.  Under autograd each unit of ``unit_structure`` runs under the
+    plan's ``remat`` (the tail does not, as in the reference).
     """
     h = embed_inputs(params, batch, cfg, plan)
     if decode:
@@ -280,10 +326,27 @@ def forward(params: Transformer, batch: dict, cfg: ArchConfig,
     else:
         positions = torch.arange(h.shape[1], dtype=torch.int32,
                                  device=h.device)
-    for i, layer in enumerate(params.layers):
-        h, _ = apply_layer(layer, h, cfg, plan, positions,
-                           cache[i] if cache is not None else None, decode)
+    aux = h.new_zeros((), dtype=torch.float32)
+    size, n_full = unit_structure(cfg)
+    layers = list(params.layers)
+
+    def unit(i0: int, h, aux):
+        for i in range(i0, i0 + size):
+            h, _, a = apply_layer(layers[i], h, cfg, plan, positions,
+                                  cache[i] if cache is not None else None,
+                                  decode)
+            aux = aux + a
+        return h, aux
+
+    body = _remat(unit, plan, torch.is_grad_enabled() and cache is None)
+    for u in range(n_full):
+        h, aux = body(u * size, h, aux)
+    for i in range(n_full * size, len(layers)):
+        h, _, a = apply_layer(layers[i], h, cfg, plan, positions,
+                              cache[i] if cache is not None else None,
+                              decode)
+        aux = aux + a
     h = L.apply_norm(params.final_norm, h, cfg)
     wout = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = torch.einsum("bsd,dv->bsv", h, wout.to(h.dtype))
-    return logits, cache
+    return logits, cache, aux

@@ -1,0 +1,149 @@
+"""Train step: microbatch gradient accumulation, clipping, optimizer update.
+
+Counterpart of ``repro.train.step``.  ``make_train_step(model)`` returns
+``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``:
+the loss's gradients over ``plan.microbatches`` microbatches (the batch's
+rows cut in order), summed in ``plan.accum_dtype`` in microbatch order and
+divided by their number, the loss averaged; with ``grad_compress="int8_ef"``
+the gradients pass the error-feedback compression; then they are clipped
+to a global norm of 1.0 and the optimizer updates the parameters in place
+(the reference donates its buffers: the same thing).  ``metrics`` holds
+the loss and the gradient norm before the clip.
+
+The parameters are frozen (``requires_grad=False``) outside a step; a step
+turns gradients on for its own parameters while it runs, so a serving path
+on the same weights builds no autograd graph.  ``fused_grad_reduce`` pins
+the reference's gradients to the parameters' sharding; on one card there is
+no reduction to fuse, and the field is read by the analytic estimate only
+(``core.intensity.estimate_program``'s collective count).
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.convert import leaf_groups
+from repro_torch.models.layers import dtype_of
+from repro_torch.models.model import Model
+from repro_torch.train import compress as C
+from repro_torch.train import optimizer as O
+
+CLIP_NORM = 1.0
+
+
+def param_leaves(cfg, tensors) -> dict:
+    """The leaf dict of ``tensors`` (a ``Transformer``, or a dict of its
+    parameter names -> tensors): reference leaf path -> the port's tensors,
+    in the reference's leaf order."""
+    named = tensors if isinstance(tensors, dict) \
+        else dict(tensors.named_parameters())
+    return {path: [named[n] for n in names]
+            for path, names in leaf_groups(cfg)}
+
+
+def global_norm(leaves: dict) -> torch.Tensor:
+    """sqrt of the sum of squares of every tensor of a leaf dict, in f32,
+    summed leaf by leaf in leaf order."""
+    total = 0
+    for ts in leaves.values():
+        total = total + sum(torch.sum(torch.square(x.float())) for x in ts)
+    return torch.sqrt(total)
+
+
+def make_opt_init(model: Model):
+    def opt_init(params):
+        leaves = param_leaves(model.cfg, params)
+        state = O.opt_init(model.cfg, leaves)
+        if model.plan.grad_compress == "int8_ef":
+            state["ef"] = C.ef_init(leaves)
+        return state
+    return opt_init
+
+
+def _microbatches(batch: dict, n: int) -> list:
+    """The batch's rows cut into ``n`` equal microbatches, in order."""
+    rows = next(iter(batch.values())).shape[0]
+    if rows % n:
+        raise ValueError(f"batch of {rows} rows does not cut into {n} "
+                         f"microbatches")
+    m = rows // n
+    return [{k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+            for i in range(n)]
+
+
+def make_grad_step(model: Model):
+    """``grads_and_loss(params, batch) -> (name -> gradient, loss)``: the
+    train step's gradients before compression and the clip, summed over
+    the plan's microbatches in ``accum_dtype`` (a single batch: in the
+    parameters' dtype) and divided by their number, and the mean loss."""
+    plan = model.plan
+    n_micro = plan.microbatches
+    acc_dt = dtype_of(plan.accum_dtype)
+
+    def grads_and_loss(params, batch):
+        # each microbatch's gradients land in ``.grad``; where the
+        # accumulator's dtype is not the parameter's, they are summed into
+        # one of ``acc_dt``
+        named = dict(params.named_parameters())
+        acc: dict = {}
+        lsum = None
+        for p in named.values():
+            p.grad = None
+            p.requires_grad_(True)
+        try:
+            for mb in _microbatches(batch, n_micro):
+                loss, _ = model.loss(params, mb)
+                loss.backward()
+                loss = loss.detach()
+                lsum = loss if lsum is None else lsum + loss
+                if n_micro == 1:
+                    continue
+                for n, p in named.items():
+                    if p.grad is not None and p.grad.dtype != acc_dt:
+                        g = p.grad.to(acc_dt)
+                        acc[n] = g if n not in acc else acc[n] + g
+                        p.grad = None
+        finally:
+            grads = {}
+            for n, p in named.items():
+                p.requires_grad_(False)
+                grads[n] = acc.get(n, p.grad)
+                p.grad = None
+        for n, g in grads.items():
+            if g is None:               # a parameter the loss never reads
+                grads[n] = torch.zeros_like(
+                    named[n], dtype=named[n].dtype if n_micro == 1
+                    else acc_dt)
+            elif n_micro > 1:
+                g.div_(n_micro)
+        return grads, (lsum / n_micro if n_micro > 1 else lsum)
+
+    return grads_and_loss
+
+
+def make_train_step(model: Model):
+    cfg, plan = model.cfg, model.plan
+    grads_and_loss = make_grad_step(model)
+
+    def train_step(params, opt_state, batch):
+        grads, loss = grads_and_loss(params, batch)
+        grads = param_leaves(cfg, grads)
+
+        ef_state = None
+        if plan.grad_compress == "int8_ef":
+            grads, ef_state = C.ef_compress_tree(grads, opt_state["ef"])
+
+        gnorm = global_norm(grads)
+        scale = torch.clamp(CLIP_NORM / torch.clamp(gnorm, min=1e-9),
+                            max=1.0)
+        for ts in grads.values():
+            for g in ts:
+                g.mul_(scale)
+
+        core_state = {k: v for k, v in opt_state.items() if k != "ef"}
+        new_state = O.opt_update(cfg, param_leaves(cfg, params), grads,
+                                 core_state)
+        if ef_state is not None:
+            new_state["ef"] = ef_state
+        return params, new_state, {"loss": loss, "grad_norm": gnorm}
+
+    return train_step

@@ -658,3 +658,119 @@ def test_measured_rung_launches_the_kernels_its_plan_names(cuda,
     check_window("trial", m.trace.meta["counter"])
     assert m.energy_j == pytest.approx(m.trace.integrate(), rel=1e-12)
     assert 0 < m.watts <= m.trace.meta["power_limit_w"] * 1.05
+
+
+# ---------------------------------------------------------------------------
+# Training: the autograd Functions and a train step on the card
+# ---------------------------------------------------------------------------
+
+
+def _function_cases(rng, dtype):
+    """(name, kernel, Function call, plain version, inputs) for each of the
+    four differentiable kernels at small ragged shapes."""
+    q = _randn(rng, (2, 40, 4, 64), dtype)
+    k, v = _randn(rng, (2, 40, 2, 64), dtype), _randn(rng, (2, 40, 2, 64),
+                                                       dtype)
+    x = _randn(rng, (2, 9, 32), dtype)
+    w = [_randn(rng, (32, 48), dtype, 0.2), _randn(rng, (32, 48), dtype, 0.2),
+         _randn(rng, (48, 32), dtype, 0.15)]
+    s_args = list(_ssd_inputs(rng, 1, 48, 2, 16, 8, dtype))
+    r_args = [-torch.abs(_randn(rng, (2, 33, 40))), _randn(rng, (2, 33, 40))]
+    return [
+        ("flash_attention", FA.KERNEL,
+         lambda *a: ops.flash_attention(*a, True, 16),
+         lambda *a: ref.flash_attention_ref(*a, True, 16), [q, k, v]),
+        ("swiglu", SG.KERNEL, ops.fused_swiglu,
+         lambda xx, *ws: ref.swiglu_ref(xx.reshape(-1, 32), *ws)
+         .reshape(xx.shape), [x, *w]),
+        ("ssd", SD.KERNEL, lambda *a: ops.ssd(*a, chunk=16),
+         lambda *a: ref.ssd_ref(*a, 16), s_args),
+        ("rglru", RG.KERNEL, ops.rglru, ref.rglru_ref, r_args)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_functions_launch_forward_and_differentiate_the_plain_version(
+        cuda, dtype):
+    """Each Function's forward launches its kernel once (its backward
+    none); its gradients are autograd of the plain version on the same
+    inputs on the card: the same code, bit for bit."""
+    rng = np.random.default_rng(21)
+    for name, kernel, fn, plain, args in _function_cases(rng, dtype):
+        args = [a.detach().requires_grad_() for a in args]
+        n0 = kernel.launches
+        out = fn(*args)
+        outs = out if isinstance(out, tuple) else (out,)
+        assert kernel.launches == n0 + 1, name
+        cots = [torch.randn_like(o) for o in outs]
+        got = torch.autograd.grad(outs, args, cots)
+        assert kernel.launches == n0 + 1, name
+        ref_out = plain(*args)
+        ref_outs = ref_out if isinstance(ref_out, tuple) else (ref_out,)
+        want = torch.autograd.grad(ref_outs, args, cots)
+        for i, (a, b) in enumerate(zip(got, want)):
+            assert a.dtype == b.dtype and torch.equal(a, b), (name, i)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "mamba2-1.3b",
+                                  "recurrentgemma-9b"])
+def test_reduced_train_step_on_the_card(cuda, arch):
+    """A reduced config in f32 under the offload plan with full remat: the
+    loss and gradient norm of a train step on the card match the plain
+    path on the CPU (1e-4); each kernel of the path launches twice a
+    microbatch in a layer of a full unit (the forward, then its
+    recomputation in the backward) and once in the tail."""
+    from repro_torch.train.step import make_opt_init, make_train_step
+    cfg = get_config(arch, reduced=True)
+    cfg = dataclasses.replace(cfg, plan=cfg.plan.replace(
+        compute_dtype="float32", remat="full", microbatches=2))
+    off = cfg.plan.replace(attn_impl="pallas", mlp_impl="pallas",
+                           ssm_impl="pallas", rglru_impl="pallas")
+    cpu = Model(cfg, cfg.plan.replace(attn_impl="xla"), device="cpu")
+    params = cpu.init(torch.Generator().manual_seed(0))
+    gpu = Model(cfg, off, device="cuda")
+    gparams = gpu.load(params.state_dict())
+    rng = np.random.default_rng(2)
+    t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 41))
+                         .astype(np.int32))
+    batch = {"tokens": t[:, :-1], "targets": t[:, 1:]}
+    _, _, want = make_train_step(cpu)(params, make_opt_init(cpu)(params),
+                                      batch)
+    kernels = {"flash_attention": FA.KERNEL, "swiglu": SG.KERNEL,
+               "ssd": SD.KERNEL, "rglru": RG.KERNEL}
+    before = {n: k.launches for n, k in kernels.items()}
+    _, _, got = make_train_step(gpu)(
+        gparams, make_opt_init(gpu)(gparams),
+        {k: v.cuda() for k, v in batch.items()})
+    for key in ("loss", "grad_norm"):
+        assert float(got[key]) == pytest.approx(float(want[key]), rel=1e-4)
+    from repro_torch.models.transformer import unit_structure
+    size, n_full = unit_structure(cfg)
+    want_launches = dict.fromkeys(kernels, 0)
+    for i, kind in enumerate(cfg.layer_kinds()):
+        n = 2 * (2 if i < n_full * size else 1)   # 2 microbatches; remat
+        site = {"attn": "flash_attention", "ssm": "ssd", "rec": "rglru"}
+        want_launches[site[kind]] += n
+        if kind != "ssm" and cfg.act == "swiglu":
+            want_launches["swiglu"] += n
+    assert {n: k.launches - before[n] for n, k in kernels.items()} \
+        == want_launches
+    for p in gparams.parameters():
+        assert bool(torch.isfinite(p).all())
+
+
+def test_measured_train_trial_on_the_card(cuda, monkeypatch):
+    from repro_torch.configs import CARD_SHAPES, ShapeSpec
+    from repro_torch.core.backends import MeasureContext, MeasuredBackend
+    from repro_torch.telemetry.nvml import check_window
+    monkeypatch.setitem(CARD_SHAPES, "card_train",
+                        ShapeSpec("card_train", 256, 4, "train"))
+    cfg = get_config("qwen2-7b", reduced=True)
+    plan = cfg.plan.replace(attn_impl="pallas", mlp_impl="pallas",
+                            microbatches=2)
+    rung = MeasuredBackend(device=cuda)
+    m = rung.measure(MeasureContext(cfg, "card_train"), plan)
+    assert m.ok and not rung.params
+    launches = m.trace.meta["launches"]
+    assert launches["flash_attention"] > 0 and launches["swiglu"] > 0
+    check_window("trial", m.trace.meta["counter"])
+    assert m.energy_j == pytest.approx(m.trace.integrate(), rel=1e-12)

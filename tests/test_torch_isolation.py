@@ -41,7 +41,14 @@ def test_port_imports_no_jax_and_nothing_of_repro(path):
 def test_the_scan_sees_the_whole_port():
     names = {p.relative_to(ROOT).as_posix() for p in PORT_FILES}
     assert {"chip_smoke.py", "src/repro_torch/serve/engine.py",
-            "src/repro_torch/kernels/ops.py"} <= names
+            "src/repro_torch/kernels/ops.py",
+            "src/repro_torch/train/step.py",
+            "src/repro_torch/train/optimizer.py",
+            "src/repro_torch/train/compress.py",
+            "src/repro_torch/data/pipeline.py",
+            "src/repro_torch/ckpt/checkpoint.py",
+            "src/repro_torch/ft/driver.py",
+            "src/repro_torch/launch/train.py"} <= names
     assert _forbidden("jax.numpy") and _forbidden("repro.models")
     assert not _forbidden("repro_torch.models")
 

@@ -264,11 +264,11 @@ def test_run_attention_window_prefill_then_decode(impl):
         _cache_close(tcache, jcache)
 
 
-def test_run_moe_names_the_roadmap_item():
-    """ROADMAP.md's MoE item is ported: ``run_moe`` on reduced
-    granite-moe-1b-a400m's widths, with weights and inputs handed to both
-    packages, gives the reference's y and aux loss (held at more capacity
-    factors and in bf16 in tests/test_torch_moe.py)."""
+def test_run_moe_matches_the_reference():
+    """``run_moe`` on reduced granite-moe-1b-a400m's widths, with weights
+    and inputs handed to both packages, gives the reference's y and aux
+    loss (held at more capacity factors and in bf16 in
+    tests/test_torch_moe.py)."""
     jc, tc = _cfgs("granite-moe-1b-a400m")
     e, d, f = tc.moe.n_experts, tc.d_model, tc.moe.d_ff_expert
     rng = np.random.default_rng(7)

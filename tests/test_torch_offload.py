@@ -55,11 +55,12 @@ SPEC = dict(name="test_chip", peak_flops=500e12, hbm_bw=2.0e12,
             e_ici=2e-11, p_static=90.0)
 
 
-def _ref_plan(cfg):
+def _ref_plan(cfg, **kw):
     """The reference's plan with the genes the port lacks at the values the
-    port's plans imply: no tensor parallelism, no overlap."""
+    port's plans imply: no tensor parallelism, no overlap (and, in ``kw``,
+    e.g. no FSDP)."""
     return dataclasses.replace(cfg.plan, use_tp=False,
-                               overlap_collectives=False)
+                               overlap_collectives=False, **kw)
 
 
 def _close(a, b):
@@ -86,7 +87,9 @@ def test_fitness_equals_the_reference(seconds, watts, alpha, beta):
 def test_genes_are_a_subset_of_the_reference_with_identical_alleles():
     assert set(plan.GENES) <= set(j_plan.GENES)
     assert set(plan.GENES) == {"attn_impl", "mlp_impl", "ssm_impl",
-                               "rglru_impl", "attn_chunk", "kv_cache_dtype"}
+                               "rglru_impl", "attn_chunk", "kv_cache_dtype",
+                               "remat", "microbatches", "fused_grad_reduce",
+                               "grad_compress"}
     for g, (alleles, _) in plan.GENES.items():
         assert alleles == j_plan.GENES[g][0]
         assert getattr(get_config("qwen2-7b").plan, g) is not None
@@ -270,17 +273,35 @@ def test_moe_capacity_equals_the_reference():
                 assert moe_capacity(cfg, n) == j_moe_capacity(jcfg, n)
 
 
-def test_estimate_program_refuses_train_shapes():
-    cfg = get_config("qwen2-7b")
-    with pytest.raises(NotImplementedError, match="section A item 5"):
-        intensity.estimate_program(cfg, SHAPES["train_4k"], cfg.plan, 256)
+@pytest.mark.parametrize("arch", ALL_ARCHS + ["tiny-lm"])
+@pytest.mark.parametrize("n_chips", [1, 256])
+def test_estimate_program_train_equals_the_reference(arch, n_chips):
+    """The train branch at ``train_4k`` equals the reference's with
+    ``use_tp=False, fsdp=False`` (the port has neither), under the arch's
+    plan and under a plan with every train gene moved."""
+    cfg, jcfg = get_config(arch), jget(arch)
+    moved = dict(remat="dots", microbatches=2, fused_grad_reduce=False,
+                 grad_compress="int8_ef")
+    for p, jp in ((cfg.plan, _ref_plan(jcfg, fsdp=False)),
+                  (cfg.plan.replace(**moved),
+                   dataclasses.replace(_ref_plan(jcfg, fsdp=False),
+                                       **moved))):
+        got = intensity.estimate_program(cfg, SHAPES["train_4k"], p,
+                                         n_chips)
+        want = j_intensity.estimate_program(jcfg, J_SHAPES["train_4k"], jp,
+                                            n_chips)
+        for f in ("flops", "hbm_bytes", "coll_bytes", "peak_mem_per_chip"):
+            _close(getattr(got, f), getattr(want, f))
+        assert got.coll_ops == want.coll_ops > 0
+        assert got.breakdown == want.breakdown
 
 
 def test_card_shapes_cut_only_the_batch_and_stay_out_of_shapes():
     assert set(SHAPES) == set(J_SHAPES)
     assert not set(CARD_SHAPES) & set(SHAPES)
     for name, ref in (("prefill_32k_b1", "prefill_32k"),
-                      ("decode_32k_b8", "decode_32k")):
+                      ("decode_32k_b8", "decode_32k"),
+                      ("train_4k_b4", "train_4k")):
         s, r = get_shape(name), SHAPES[ref]
         assert (s.seq_len, s.kind) == (r.seq_len, r.kind)
         assert s.global_batch < r.global_batch
@@ -586,6 +607,8 @@ def small_shapes(monkeypatch):
                         ShapeSpec("cpu_prefill", 64, 1, "prefill"))
     monkeypatch.setitem(CARD_SHAPES, "cpu_decode",
                         ShapeSpec("cpu_decode", 48, 2, "decode"))
+    monkeypatch.setitem(CARD_SHAPES, "cpu_train",
+                        ShapeSpec("cpu_train", 32, 4, "train"))
 
 
 def _measured(**kw):
@@ -664,11 +687,29 @@ def test_measured_rung_lets_every_other_failure_through(small_shapes,
                             cfg.plan)
 
 
-def test_measured_rung_refuses_train_shapes():
+def test_measured_train_trial_on_the_cpu(small_shapes):
+    """A train trial: whole train steps on the trial's own weights and
+    optimizer state; the weights other trials share are neither made nor
+    touched, and the loss is kept as the trial's output."""
     cfg = get_config("tiny-test")
-    with pytest.raises(NotImplementedError, match="section A item 5"):
-        _measured().measure(backends.MeasureContext(cfg, "train_4k"),
-                            cfg.plan)
+    rung = _measured()
+    served = rung.weights(Model(cfg, device="cpu"))
+    before = {k: v.clone() for k, v in served.state_dict().items()}
+    p = cfg.plan.replace(microbatches=2, attn_impl="pallas",
+                         mlp_impl="pallas")
+    m = rung.measure(backends.MeasureContext(cfg, "cpu_train"), p)
+    assert m.ok and m.source == "measured" and m.trace.meta["calls"] >= 3
+    assert m.energy_j == pytest.approx(m.trace.integrate(), rel=1e-12)
+    est = intensity.estimate_program(cfg, get_shape("cpu_train"), p, 1)
+    assert m.flops == est.flops and m.hbm_bytes == est.hbm_bytes
+    loss = rung.outputs[backends.plan_tag(p)]
+    assert loss.shape == (1,) and torch.isfinite(loss).all()
+    assert rung.params["tiny-test"] is served
+    for k, v in served.state_dict().items():
+        assert torch.equal(v, before[k]) and not v.requires_grad
+    # the plain versions on the CPU count no launches
+    assert m.trace.meta["launches"] == {"flash_attention": 0, "swiglu": 0,
+                                        "ssd": 0, "rglru": 0}
 
 
 def test_measured_rung_needs_a_card_by_default(monkeypatch):

@@ -226,7 +226,7 @@ def test_bf16_layers_match_the_reference_given_the_same_input():
         lp = jax.tree.map(lambda a: jnp.asarray(a[i]), jp["scan"]["l0"])
         want, _, _ = JT.apply_layer(lp, h, "ssm", jc, jc.plan, pos, None,
                                     False, None)
-        got, _ = T.apply_layer(params.layers[i], torch.from_numpy(
+        got, _, _ = T.apply_layer(params.layers[i], torch.from_numpy(
             np.asarray(h, np.float32)).bfloat16(), tc, tc.plan, tpos, None,
             False)
         want = np.asarray(want, np.float32)
