@@ -68,9 +68,10 @@ a non-zero exit and no result line:
               serve    ``ServeLoop`` (8 slots, max_seq 256) billing a
                        ``DecodeEnergyMeter`` at the accelerated R740 node
                        point: 8 requests, 16 new tokens each;
-              offload  (qwen2-7b's path, on its loaded weights) the paper's
-                       offload search, ``core.adapt`` at prefill_32k_b1:
-                       GA and narrowing on the analytic rung, the finalists
+              offload  (qwen2-7b's path, on the first 14 of its 28 loaded
+                       layers, OFFLOAD_LAYERS) the paper's offload search,
+                       ``core.adapt`` at prefill_32k_b1: GA and narrowing
+                       on the analytic rung, the finalists
                        and the chosen plan's smoke trial measured on the
                        card (wall clock, NVML energy); each finalist's
                        seconds, W, Ws and fitness or its penalty, the chosen
@@ -79,7 +80,8 @@ a non-zero exit and no result line:
                        the kernels its genes name;
               counts   the kernels' launch counts over that model's path,
                        each kernel of the path > 0;
-              fleet    (qwen2-7b's path, on its loaded weights, counted as a
+              fleet    (qwen2-7b's path, on the first 14 of its 28 loaded
+                       layers, FLEET_LAYERS, counted as a
                        path of its own: swiglu must launch) Step 7 and the
                        object fleet: (a) the serving CLI's library entry
                        (``repro_torch.launch.serve.run``): 16 requests on
@@ -101,7 +103,31 @@ a non-zero exit and no result line:
               mamba2-1.3b, under torch.profiler: kernels by device time,
               the CUDA runtime calls by host time, and the device's busy
               share of each window;
-  7. archs    the seven archs of the MoE / LayerNorm / front-end slice
+  7. fleet-scale  the vectorized fleet engines, no model, counted as a path
+              of its own (it launches none of the five kernels: its device
+              work is stock torch ops): (a) the control plane's torch twins
+              on the card against numpy over 300 seeded inputs each, the
+              route argmin over 1024 nodes (float-equal marginal and load
+              ties; winners exact) and the Erlang-C sweep at the fleet's
+              cumulative slots (c_max 4096; rtol 1e-9, atol 1e-12), each
+              call timed beside numpy's; (b) the reference's fleet_scale
+              shape, 2 x 10^4 seeded diurnal arrivals over 1024 nodes under
+              consolidate-and-gate, through vector-seg, vector-torch (the
+              booking plane folded on the card) and vector-shard (inline,
+              and with worker processes); the numpy arms run in processes
+              forked after the card is up, beside the torch arm and (c):
+              the same placement events, finished sets and tokens, the
+              shard ledgers bit for bit vector-seg's, vector-torch's
+              within rtol 1e-12; (c) the reference's fleet_diurnal_1m rung, a simulated
+              day (24 h x 2000 steps) of 10^6 arrivals over 1024 nodes
+              through ``launch.serve.run_vector`` (--engine vector-torch
+              --placement gate, nodes at the H100 envelope) with a flight
+              recorder sampling 1 % of the requests and a snapshot each
+              hour: every request finishes, the bills sum to the ledger
+              (rel 1e-9); wall s, simulated arrivals/s, the fold's device
+              ms and H2D ms per chunk (CUDA events), total Ws, the hourly
+              powered-node curve and the flight rows;
+  8. archs    the seven archs of the MoE / LayerNorm / front-end slice
               (granite-moe-1b-a400m, moonshot-v1-16b-a3b, granite-20b,
               stablelm-12b, llama3-405b, internvl2-76b, hubert-xlarge) at
               their published widths under the offload plan, one arch's
@@ -121,7 +147,7 @@ a non-zero exit and no result line:
               where that is larger); each phase's peak device memory, its
               launches (flash_attention on every arch, swiglu too on
               stablelm-12b, llama3-405b and internvl2-76b) and seconds;
-  8. train    each autograd Function (flash_attention at D 128 causal and
+  9. train    each autograd Function (flash_attention at D 128 causal and
               at D 256 with the 2048 window, swiglu, ssd in bf16, rglru)
               at a train microbatch's shape (one 4096-token sequence): its
               forward (the kernel) held to the plain version by the
@@ -1287,6 +1313,10 @@ def profile_prefill(model, params, prefill_s: float) -> None:
 #: pattern meets the requirement) and promotes its finalists to the card
 OFFLOAD_SLO_S = 0.5
 OFFLOAD_SHAPE = "prefill_32k_b1"
+#: the search's depth: the first layers of the loaded weights (shared, not
+#: copied), cut from 28 for the run's time: each stock-attention finalist
+#: takes ~20 s a 32k prefill at 28 layers, four calls a trial
+OFFLOAD_LAYERS = 14
 
 
 class Recorded:
@@ -1306,17 +1336,34 @@ class Recorded:
         return m
 
 
+def first_layers(params, cfg, layers: int):
+    """``params`` cut to its first ``layers`` layers, sharing every tensor
+    (embedding, final norm and head included), and the config to match."""
+    import copy
+    import dataclasses
+    sub = copy.copy(params)
+    sub._parameters = dict(params._parameters)
+    sub._modules = dict(params._modules)
+    sub._modules["layers"] = torch.nn.ModuleList(
+        list(params.layers)[:layers])
+    sub.cfg = dataclasses.replace(cfg, n_layers=layers)
+    return sub, sub.cfg
+
+
 def phase_offload(model, params, source) -> dict:
     """The paper's offload search for qwen2-7b at prefill_32k_b1 on the
     card: finalists and the smoke trial on the measured rung, on the
-    loaded weights."""
+    loaded weights' first OFFLOAD_LAYERS layers."""
     from repro_torch.core.adapt import adapt
     from repro_torch.core.backends import (MeasuredBackend, plan_kernels,
                                            plan_tag)
     from repro_torch.core.destinations import Requirement
     from repro_torch.core.verifier import RungPolicy
     from repro_torch.telemetry.nvml import check_window
-    cfg = model.cfg
+    params, cfg = first_layers(params, model.cfg, OFFLOAD_LAYERS)
+    log(f"[offload] {cfg.name}: layers {OFFLOAD_LAYERS} of "
+        f"{model.cfg.n_layers} (cut for the run's time: a stock-attention "
+        f"finalist takes ~20 s a prefill at {model.cfg.n_layers})")
     t0 = time.perf_counter()
     rung = Recorded(MeasuredBackend(source=source, params={cfg.name: params},
                                     log=log))
@@ -1383,9 +1430,14 @@ def phase_offload(model, params, source) -> dict:
 #: the fleet phase's CLI run (launch/serve.py's object engine): two nodes
 #: of 8 slots on the one card, paced arrivals, teamB under a Ws budget
 #: small enough to throttle it (its window is the whole 64-step run).  A
-#: qwen2-7b request bills 400-650 Ws at the H100 envelope on the card, so
-#: teamB is served about twice and then throttled
-FLEET_BUDGET_WS = 900.0
+#: qwen2-7b request bills 400-650 Ws at the H100 envelope on the card at
+#: 28 layers, about half that at FLEET_LAYERS, so teamB is served about
+#: twice and then throttled
+FLEET_BUDGET_WS = 450.0
+#: the fleet phase's depth: the loaded weights' first layers (shared), cut
+#: from 28 for the run's time (its decode steps and the governors' trials
+#: at decode_32k_b8 are host-bound, 7 s a call at 28 layers)
+FLEET_LAYERS = 14
 FLEET_ARGS = ["--fleet", "2", "--slots", "8", "--max-seq", "256",
               "--max-new", "16", "--requests", "16",
               "--tenants", "teamA,teamB",
@@ -1658,16 +1710,523 @@ def run_path(arch: str, counters: dict, seeds=(0,), before=None,
 
 
 def run_fleet(model, params, source, counters: dict) -> dict:
-    """The fleet phase as a path of its own: the launch counts set to 0
-    just before it and read just after; swiglu must have launched."""
+    """The fleet phase as a path of its own, on the first FLEET_LAYERS
+    layers of the loaded weights: the launch counts set to 0 just before
+    it and read just after; swiglu must have launched."""
+    from repro_torch.models.model import Model
+    params, cfg = first_layers(params, model.cfg, FLEET_LAYERS)
+    log(f"[fleet] {cfg.name}: layers {FLEET_LAYERS} of {model.cfg.n_layers} "
+        f"(cut for the run's time: the trials at {RECON_SHAPE} take ~7 s a "
+        f"call at {model.cfg.n_layers})")
     for k in counters.values():
         k.launches = 0
-    phase_fleet(model, params, source)
+    phase_fleet(Model(cfg, model.plan, model.device), params, source)
     launches = {name: k.launches for name, k in counters.items()}
     log("kernels fleet " + json.dumps(launches))
     if not launches["swiglu"]:
         raise RuntimeError(f"fleet: swiglu never launched ({launches})")
     return launches
+
+
+#: the fleet-scale phase: the reference's fleet_scale and fleet_diurnal_1m
+#: rungs (benchmarks/bench_power.py) on the port's vectorized engines, no
+#: model.  Its device work is the control-plane twins and the torch
+#: booking plane (stock torch ops); it launches none of the five kernels
+SCALE_NODES = 1024
+SCALE_SLOTS = 4
+SCALE_TWIN_ARRIVALS = 20_000
+SCALE_DAY_ARRIVALS = 1_000_000
+SCALE_HOURS = 24
+SCALE_STEPS_PER_HOUR = 2000
+SCALE_TENANTS = 4
+SCALE_SAMPLE = 0.01
+SCALE_CONTROL_INPUTS = 300
+#: the Lq sweep's twin tolerance (the reference's own,
+#: tests/test_fleet_jax_kernels.py:77); the torch booking plane's
+#: (a sum over a chunk reorders additions)
+LQ_TOL = dict(rtol=1e-9, atol=1e-12)
+FOLD_RTOL = 1e-12
+
+
+def scale_fleet(**kw):
+    """The reference's ``fleet_scale`` fleet (bench_power.py
+    ``_scale_fleet``) on the port's engines: SCALE_NODES nodes of 4 slots
+    at the accelerated R740 point, a 4-ms tick, consolidate-and-gate
+    planning every 16 steps.  ``kw``: the segment engine's ``backend`` /
+    ``device``, or the sharded engine's ``shards`` / ``parallel``."""
+    from repro_torch.core.power import R740_ARRIA10
+    from repro_torch.fleet import (FleetPolicy, PowerPlanPolicy,
+                                   PowerStatePolicy, SegmentFleet,
+                                   ShardedSegmentFleet, VectorNodeSpec)
+    from repro_torch.telemetry import node_envelope
+    env = node_envelope(R740_ARRIA10, accelerated=True)
+    specs = [VectorNodeSpec(f"pod{i:04d}", env, slots=SCALE_SLOTS,
+                            step_s=0.004, max_seq=64)
+             for i in range(SCALE_NODES)]
+    ppol = PowerPlanPolicy(
+        mode="gate", slo_queue_depth=4.0, plan_every=16,
+        min_active=max(SCALE_NODES // 128, 1), min_active_steps=64,
+        horizon_steps=64.0,
+        states=PowerStatePolicy(gate_watts=3.0, boot_energy_ws=2.0,
+                                warmup_steps=8, cooldown_steps=32))
+    cls = ShardedSegmentFleet if "shards" in kw else SegmentFleet
+    return cls(specs, policy=FleetPolicy(flush_every=8, checkpoint_every=16,
+                                         migrate_on_drift=False),
+               plan=ppol, loop_model="serve", **kw)
+
+
+def host_ms(fn) -> float:
+    """Milliseconds of one call of ``fn`` on the host's clock (a call that
+    returns host values waits for the card itself)."""
+    t0 = time.perf_counter()
+    fn()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def control_twins(dev) -> dict:
+    """(a) The control plane's torch twins on the card against numpy, over
+    SCALE_CONTROL_INPUTS seeded inputs each: the route argmin over
+    SCALE_NODES nodes (quantized marginals and loads: float-equal ties at
+    both levels; some inputs with almost nothing or nothing active),
+    winners exact; the Erlang-C sweep at the fleet's cumulative slots
+    (c_max = SCALE_NODES x SCALE_SLOTS) over rates from a trough to
+    saturation, within LQ_TOL.  Each call timed on the host's clock beside
+    the numpy call's."""
+    from repro_torch.fleet.power.forecast import ArrivalForecaster
+    from repro_torch.fleet.torch_backend import (
+        expected_queue_depth_many_torch, route_argmin_np, route_argmin_torch)
+    rng = np.random.default_rng(0)
+    n = SCALE_NODES
+    t = {"route": ([], []), "lq": ([], [])}
+    ties = {"marginal": 0, "load": 0, "none_active": 0}
+    route_argmin_torch(np.zeros(n), np.zeros(n), np.arange(n),
+                       np.ones(n, bool), device=dev)          # warm-up
+    for i in range(SCALE_CONTROL_INPUTS):
+        marg = rng.integers(0, 6, n) * 0.125
+        marg[rng.random(n) < 0.05] = np.inf
+        load = rng.integers(0, 5, n) / 4.0
+        rank = rng.permutation(n)
+        active = rng.random(n) < (0.5 if i % 5 else 0.003)
+        if i % 50 == 49:
+            active[:] = False
+        out = {}
+        t["route"][1].append(host_ms(lambda: out.__setitem__(
+            "np", route_argmin_np(marg, load, rank, active))))
+        t["route"][0].append(host_ms(lambda: out.__setitem__(
+            "torch", route_argmin_torch(marg, load, rank, active,
+                                        device=dev))))
+        if out["torch"] != out["np"]:
+            raise RuntimeError(f"fleet-scale route input {i}: torch winner "
+                               f"{out['torch']}, numpy {out['np']}")
+        if not active.any():
+            ties["none_active"] += 1
+            continue
+        m = np.where(active, marg, np.inf)
+        t1 = active & (m == m.min())
+        ties["marginal"] += int(t1.sum() > 1)
+        lo = np.where(t1, load, np.inf)
+        ties["load"] += int((t1 & (lo == lo.min())).sum() > 1)
+    servers = np.cumsum(np.full(n, SCALE_SLOTS))
+    fc = ArrivalForecaster()
+    expected_queue_depth_many_torch(servers, 16.0, 1.0, device=dev)
+    worst = 0.0
+    with np.errstate(all="ignore"):
+        for i in range(SCALE_CONTROL_INPUTS):
+            fc._n, fc._last_t = 1, 0.0
+            fc._gap_ewma = 10.0 ** rng.uniform(-3.5, 3.0)
+            lam = fc.rate(now=0.0)
+            service = 10.0 ** rng.uniform(0.0, 2.5)
+            horizon = float(rng.choice([16.0, 64.0, 256.0]))
+            out = {}
+            t["lq"][1].append(host_ms(lambda: out.__setitem__(
+                "np", fc.expected_queue_depth_many(servers, service, now=0.0,
+                                                   horizon=horizon))))
+            t["lq"][0].append(host_ms(lambda: out.__setitem__(
+                "torch", expected_queue_depth_many_torch(
+                    servers, service, lam, horizon, device=dev))))
+            np.testing.assert_allclose(
+                out["torch"], out["np"], **LQ_TOL,
+                err_msg=f"fleet-scale Lq input {i} (lam {lam}, service "
+                        f"{service}, horizon {horizon})")
+            fin = np.isfinite(out["np"]) & (out["np"] != 0)
+            if fin.any():
+                worst = max(worst, float(np.max(np.abs(
+                    out["torch"][fin] / out["np"][fin] - 1.0))))
+    res = {"inputs": SCALE_CONTROL_INPUTS, "ties": ties,
+           "lq_c_max": int(servers[-1]), "lq_max_rel_err": worst}
+    for name, (tt, tn) in t.items():
+        res[f"{name}_torch_ms"] = {"median": float(np.median(tt)),
+                                   "min": float(np.min(tt))}
+        res[f"{name}_numpy_ms"] = {"median": float(np.median(tn)),
+                                   "min": float(np.min(tn))}
+    log(f"[fleet-scale] (a) control plane on {dev}, {SCALE_CONTROL_INPUTS} "
+        f"seeded inputs each: route argmin over {n} nodes, winners exact "
+        f"(marginal ties in {ties['marginal']}, load ties in "
+        f"{ties['load']}, none active in {ties['none_active']}); torch "
+        f"{res['route_torch_ms']['median']:.4f} ms a call (median, host "
+        f"clock, the copies in and the winner out included), numpy "
+        f"{res['route_numpy_ms']['median']:.4f}; Erlang-C sweep at c_max "
+        f"{res['lq_c_max']} ({n} candidates) within rtol 1e-9, atol 1e-12 "
+        f"(worst rel {worst:.2e}): torch "
+        f"{res['lq_torch_ms']['median']:.4f} ms, numpy "
+        f"{res['lq_numpy_ms']['median']:.4f}")
+    return res
+
+
+def _ledger_numbers(fleet) -> dict:
+    led = fleet.ledger
+    return {"cells": {k: (v.ws, v.seconds, v.count, v.peak_w)
+                      for k, v in led.cells.items()},
+            "phases": {k: (v.ws, v.seconds, v.count, v.peak_w)
+                       for k, v in led.phases.items()},
+            "nodes": dict(led.nodes)}
+
+
+def _outcome(fleet, finished) -> tuple:
+    """Placement events, the finished set and the tokens of every
+    request."""
+    return ([(e.step, e.node, e.action, tuple(e.moved_rids))
+             for e in fleet.events], finished,
+            fleet.r_done_tokens.tolist())
+
+
+def _fold_close(name: str, got: dict, want: dict) -> float:
+    """``got``'s ledger within FOLD_RTOL of ``want``'s, integer counts
+    and peaks exact; returns the worst relative difference."""
+    worst = 0.0
+    for part in ("cells", "phases"):
+        if set(got[part]) != set(want[part]):
+            raise RuntimeError(f"{name}: {part} differ in their keys")
+        for key, (ws, s, n, pk) in want[part].items():
+            gws, gs, gn, gpk = got[part][key]
+            if (gn, gpk) != (n, pk):
+                raise RuntimeError(f"{name}: {part} {key} count/peak "
+                                   f"{(gn, gpk)} != {(n, pk)}")
+            for a, b in ((gws, ws), (gs, s)):
+                if not math.isclose(a, b, rel_tol=FOLD_RTOL, abs_tol=0.0):
+                    raise RuntimeError(f"{name}: {part} {key} {a!r} vs "
+                                       f"{b!r} over rtol {FOLD_RTOL}")
+                if b:
+                    worst = max(worst, abs(a / b - 1.0))
+    for node, ws in want["nodes"].items():
+        if not math.isclose(got["nodes"][node], ws, rel_tol=FOLD_RTOL):
+            raise RuntimeError(f"{name}: node {node} Ws over rtol")
+    return worst
+
+
+#: (b)'s arms: each engine's constructor arguments.  The numpy arms run
+#: in processes forked after the card is up (concurrent with the torch arm
+#: and with (c)); vector-shard's process arm forks its workers from there
+TWIN_ARMS = {"vector-seg": dict(backend="numpy"),
+             "vector-shard inline": dict(shards=2, parallel="inline"),
+             "vector-shard process": dict(shards=2, parallel="process")}
+
+
+def twin_arrivals():
+    """(b)'s stream: the reference fleet_scale's seeded diurnal day."""
+    from repro_torch.fleet import VectorArrivals
+    return VectorArrivals.diurnal(SCALE_TWIN_ARRIVALS, tenants=SCALE_TENANTS,
+                                  hours=SCALE_HOURS,
+                                  steps_per_hour=SCALE_STEPS_PER_HOUR,
+                                  max_new=8, seed=7)
+
+
+def run_arm(kw: dict, arr) -> dict:
+    """One engine of (b) over ``arr``: its wall time, outcome and
+    ledger."""
+    fleet = scale_fleet(**kw)
+    t0 = time.perf_counter()
+    finished = fleet.run(arr, max_steps=60_000)
+    wall = time.perf_counter() - t0
+    row = {"wall_s": wall, "arrivals_per_s": len(arr) / wall,
+           "finished": len(finished), "steps": fleet.steps,
+           "events": len(fleet.events), "total_ws": fleet.total_ws}
+    if kw.get("backend") == "torch":
+        row["records"] = fleet._acc.records
+    return {"row": row, "outcome": _outcome(fleet, finished),
+            "ledger": _ledger_numbers(fleet)}
+
+
+def _arm_child(conn, kw: dict) -> None:
+    """A forked arm: numpy only (it touches neither torch nor the card);
+    sends its result, or its traceback, up the pipe."""
+    import traceback
+    try:
+        conn.send(("ok", run_arm(kw, twin_arrivals())))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+    finally:
+        conn.close()
+
+
+def start_numpy_arms() -> dict:
+    """Fork one process per numpy arm of (b); returns name -> (process,
+    pipe)."""
+    from multiprocessing import get_context
+    ctx = get_context("fork")
+    arms = {}
+    for name, kw in TWIN_ARMS.items():
+        parent, child = ctx.Pipe(duplex=False)
+        proc = ctx.Process(target=_arm_child, args=(child, kw),
+                           name=f"fleet-scale {name}")
+        proc.start()
+        child.close()
+        arms[name] = (proc, parent)
+    return arms
+
+
+def collect_arms(arms: dict, timeout_s: float = 300.0) -> dict:
+    """Each forked arm's result; every process joined (terminated past
+    ``timeout_s``)."""
+    out, errors = {}, []
+    try:
+        for name, (proc, conn) in arms.items():
+            if not conn.poll(timeout_s):
+                errors.append(f"{name}: no result in {timeout_s:g} s")
+                continue
+            status, body = conn.recv()
+            if status != "ok":
+                errors.append(f"{name}: {body}")
+            else:
+                out[name] = body
+    finally:
+        for proc, conn in arms.values():
+            conn.close()
+            proc.join(timeout=10.0)
+            if proc.is_alive():
+                proc.terminate()
+                proc.join(timeout=10.0)
+    if errors:
+        raise RuntimeError("fleet-scale (b) arms failed: "
+                           + "; ".join(errors))
+    return out
+
+
+def engine_twins(arms: dict, torch_arm: dict) -> dict:
+    """(b) The reference's fleet_scale shape (one seeded diurnal stream of
+    SCALE_TWIN_ARRIVALS arrivals over SCALE_NODES nodes, gate placement)
+    through vector-seg (numpy), vector-torch (its booking plane folded on
+    the card) and vector-shard (inline, and in worker processes): the
+    same placement events, finished sets and tokens; the shard ledgers
+    bit for bit vector-seg's; vector-torch's cells, per-node Ws and phase
+    rollups within FOLD_RTOL, counts exact.  ``arms`` are the forked numpy
+    arms' results, ``torch_arm`` the torch arm's."""
+    ref = arms["vector-seg"]
+    if ref["row"]["finished"] != SCALE_TWIN_ARRIVALS:
+        raise RuntimeError(f"fleet-scale vector-seg: {ref['row']['finished']}"
+                           f" of {SCALE_TWIN_ARRIVALS} finished")
+    res = {}
+    for name, arm in (("vector-seg", ref), ("vector-torch", torch_arm),
+                      ("vector-shard inline", arms["vector-shard inline"]),
+                      ("vector-shard process",
+                       arms["vector-shard process"])):
+        row = arm["row"]
+        if name != "vector-seg":
+            if arm["outcome"] != ref["outcome"]:
+                raise RuntimeError(f"fleet-scale {name}: placement events, "
+                                   f"finished set or tokens differ from "
+                                   f"vector-seg's")
+            if name.startswith("vector-shard"):
+                if arm["ledger"] != ref["ledger"]:
+                    raise RuntimeError(f"fleet-scale {name}: ledger not bit "
+                                       f"for bit vector-seg's")
+                row["ledger"] = "bit for bit vector-seg's"
+            else:
+                row["max_rel_diff"] = _fold_close(name, arm["ledger"],
+                                                  ref["ledger"])
+        res[name] = row
+        where = "this process" if name == "vector-torch" else \
+            "a process forked after the card was up, beside (c)"
+        log(f"[fleet-scale] (b) {name} ({where}): {SCALE_TWIN_ARRIVALS} "
+            f"arrivals over {SCALE_NODES} nodes in {row['wall_s']:.3f} s "
+            f"({row['arrivals_per_s']:.0f} simulated arrivals/s, "
+            f"{row['steps']} fleet steps, {row['finished']} finished, "
+            f"{row['events']} placement events, {row['total_ws']:.3f} Ws)"
+            + (f"; {row['ledger']}" if "ledger" in row else "")
+            + (f"; within rtol {FOLD_RTOL} of vector-seg (worst "
+               f"{row['max_rel_diff']:.2e}), {row['records']} records"
+               if "max_rel_diff" in row else ""))
+    return res
+
+
+def hourly_curve(events, due, n_nodes: int) -> list:
+    """Per simulated hour: arrivals, powered nodes at the hour's end
+    (gate/regate power a node off, wake powers it back on), gates and
+    wakes (bench_power.py's ``fleet_diurnal_1m`` curve)."""
+    gated: set = set()
+    events = sorted(events, key=lambda e: e.step)
+    ei, curve = 0, []
+    for hour in range(SCALE_HOURS):
+        end = (hour + 1) * SCALE_STEPS_PER_HOUR
+        gates = wakes = 0
+        while ei < len(events) and events[ei].step <= end:
+            if events[ei].action in ("gate", "regate"):
+                gated.add(events[ei].node)
+                gates += 1
+            elif events[ei].action == "wake":
+                gated.discard(events[ei].node)
+                wakes += 1
+            ei += 1
+        curve.append({"hour": hour,
+                      "arrivals": int(((due >= hour * SCALE_STEPS_PER_HOUR)
+                                       & (due < end)).sum()),
+                      "powered_nodes": n_nodes - len(gated),
+                      "gates": gates, "wakes": wakes})
+    return curve
+
+
+def fleet_day(dev) -> dict:
+    """(c) The users' scale, the reference's fleet_diurnal_1m rung: a
+    simulated day (SCALE_HOURS x SCALE_STEPS_PER_HOUR steps) of
+    SCALE_DAY_ARRIVALS arrivals over SCALE_NODES nodes through the serving
+    CLI's library entry (``launch.serve.run_vector``, ``--engine
+    vector-torch --placement gate``; nodes at the H100 envelope), a flight
+    recorder sampling SCALE_SAMPLE of the requests with a snapshot every
+    SCALE_STEPS_PER_HOUR steps.  Holds: every request finishes, and the
+    bills (prefill + decode of every request, plus the infra tenant's
+    idle and transition Ws) sum to the ledger (rel 1e-9).  The card holds
+    only the booking plane's carries and the chunk in flight."""
+    import io
+    from contextlib import redirect_stdout
+    from repro_torch import obs
+    from repro_torch.fleet import VectorArrivals
+    from repro_torch.launch import serve
+    out_dir = Path(__file__).resolve().parent / "artifacts" / "fleet_scale"
+    arr = VectorArrivals.diurnal(SCALE_DAY_ARRIVALS, tenants=SCALE_TENANTS,
+                                 hours=SCALE_HOURS,
+                                 steps_per_hour=SCALE_STEPS_PER_HOUR,
+                                 max_new=8, seed=11)
+    args = serve.parser().parse_args([
+        "--engine", "vector-torch", "--device", str(dev), "--placement",
+        "gate", "--fleet", str(SCALE_NODES), "--slots", str(SCALE_SLOTS),
+        "--tick", "0.004", "--max-seq", "64", "--max-new", "8",
+        "--flush-every", "8", "--checkpoint-every", "16",
+        "--trace-sample", str(SCALE_SAMPLE),
+        "--snapshot-every", str(SCALE_STEPS_PER_HOUR),
+        "--flight-log", str(out_dir / "flight.jsonl"),
+        "--ledger-out", str(out_dir / "ledger.json")])
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+    text = io.StringIO()         # one line per request: kept off the log
+    t0 = time.perf_counter()
+    try:
+        with redirect_stdout(text):
+            run = serve.run_vector(args, arrivals=arr,
+                                   max_steps=(SCALE_HOURS + 1)
+                                   * SCALE_STEPS_PER_HOUR)
+        rows = list(obs.FLIGHT.snapshots)
+    finally:
+        obs.disable()
+    phase_s = time.perf_counter() - t0
+    fleet = run["fleet"]
+    if len(run["finished"]) != len(arr) or not fleet.r_finished.all():
+        raise RuntimeError(f"fleet-scale day: {len(run['finished'])} of "
+                           f"{len(arr)} requests finished")
+    led = fleet.ledger
+    infra = led.rollup("tenant")["fleet"].ws
+    billed = float(fleet.r_prefill_ws.sum() + fleet.r_decode_ws.sum()) \
+        + infra
+    if not math.isclose(billed, led.total_ws, rel_tol=1e-9):
+        raise RuntimeError(f"fleet-scale day: bills {billed} Ws != ledger "
+                           f"{led.total_ws} Ws")
+    for by in ("node", "tenant", "phase"):
+        cut = sum(pe.ws for pe in led.rollup(by).values())
+        if not math.isclose(cut, led.total_ws, rel_tol=1e-9):
+            raise RuntimeError(f"fleet-scale day: rollup by {by} sums to "
+                               f"{cut} Ws")
+    sa = run["sampled"]
+    if sa is None or not sa.ok:
+        raise RuntimeError(f"fleet-scale day: sampled scale-up {sa}")
+    chunks = fleet._acc.timings()
+    if dev.type == "cuda" and not chunks:
+        raise RuntimeError("fleet-scale day: no chunk of the booking plane "
+                           "was timed on the card")
+    fold = np.array([c["fold_ms"] for c in chunks] or [np.nan])
+    h2d = np.array([c["h2d_ms"] for c in chunks] or [np.nan])
+    curve = hourly_curve(fleet.events, np.asarray(arr.due, np.int64),
+                         SCALE_NODES)
+    res = {"arrivals": len(arr), "nodes": SCALE_NODES,
+           "wall_s": run["wall_s"], "phase_s": phase_s,
+           "arrivals_per_s": len(arr) / run["wall_s"],
+           "steps": fleet.steps, "total_ws": led.total_ws,
+           "billed_ws": billed, "infra_ws": infra,
+           "placement_events": len(fleet.events),
+           "chunks": len(chunks), "records": fleet._acc.records,
+           "fold_ms": {"median": float(np.median(fold)),
+                       "mean": float(fold.mean()), "max": float(fold.max()),
+                       "total": float(fold.sum())},
+           "h2d_ms": {"median": float(np.median(h2d)),
+                      "mean": float(h2d.mean()), "max": float(h2d.max()),
+                      "total": float(h2d.sum())},
+           "peak_mb": torch.cuda.max_memory_allocated() / 1e6
+           if dev.type == "cuda" else None,
+           "sampled": {"requests": sa.sampled_requests,
+                       "of": sa.total_requests, "scaled_ws": sa.scaled_ws,
+                       "ledger_request_ws": sa.ledger_request_ws,
+                       "error_ws": sa.error_ws,
+                       "bound_ws": sa.error_bound_ws},
+           "profile": fleet.summary().get("profile"),
+           "hourly": curve, "flight": rows}
+    trough = min(curve, key=lambda r: r["powered_nodes"])
+    log(f"[fleet-scale] (c) {len(arr)} arrivals over {SCALE_NODES} nodes, "
+        f"a simulated day ({SCALE_HOURS} h x {SCALE_STEPS_PER_HOUR} steps), "
+        f"through launch.serve.run_vector --engine vector-torch --placement "
+        f"gate: {run['wall_s']:.3f} s wall ({res['arrivals_per_s']:.0f} "
+        f"simulated arrivals/s, {fleet.steps} fleet steps), every request "
+        f"finished; total {led.total_ws:.3f} Ws at the H100 envelope, "
+        f"bills sum to the ledger (rel 1e-9); {len(fleet.events)} placement "
+        f"events, trough hour {trough['hour']} at "
+        f"{trough['powered_nodes']}/{SCALE_NODES} nodes powered")
+    log(f"[fleet-scale] (c) booking plane on {dev}: {len(chunks)} chunks "
+        f"of up to 64 records ({fleet._acc.records} records); fold "
+        f"{res['fold_ms']['median']:.4f} ms a chunk (median, CUDA events; "
+        f"mean {res['fold_ms']['mean']:.4f}, total "
+        f"{res['fold_ms']['total']:.1f} ms), H2D "
+        f"{res['h2d_ms']['median']:.4f} ms a chunk (median; total "
+        f"{res['h2d_ms']['total']:.1f} ms); the card holds only the "
+        f"booking carries ({SCALE_NODES} nodes x {SCALE_TENANTS + 1} "
+        f"tenants, float64) and the chunk in flight: peak "
+        f"{res['peak_mb']} MB")
+    log(f"[fleet-scale] (c) flight: sampled {sa.sampled_requests}/"
+        f"{sa.total_requests} requests (rate {SCALE_SAMPLE:g}), scaled "
+        f"{sa.scaled_ws:.2f} Ws vs ledger {sa.ledger_request_ws:.2f} Ws "
+        f"request-phase (err {sa.error_ws:+.2f} Ws, bound "
+        f"{sa.error_bound_ws:.2f} Ws); {len(rows)} snapshot rows")
+    log("[fleet-scale] (c) hourly (hour: arrivals, powered nodes, "
+        "gates/wakes): " + "; ".join(
+            f"{r['hour']}: {r['arrivals']}, {r['powered_nodes']}, "
+            f"{r['gates']}/{r['wakes']}" for r in curve))
+    for row in rows:
+        log("[fleet-scale] (c) flight row " + json.dumps(row))
+    for line in text.getvalue().splitlines():
+        if line.startswith("profile ") or line.startswith("flight "):
+            log(f"[fleet-scale] (c) cli: {line}")
+    return res
+
+
+def phase_fleet_scale(dev=None) -> dict:
+    """The vectorized fleet engines at the reference's scale rungs: (a)
+    the control-plane twins, (b) the engine twins at fleet_scale's shape,
+    (c) a simulated day of SCALE_DAY_ARRIVALS arrivals through the CLI's
+    library entry on the torch booking plane.  (b)'s numpy arms run in
+    forked processes while this one runs (b)'s torch arm and (c)."""
+    dev = torch.device("cuda") if dev is None else dev
+    t0 = time.perf_counter()
+    out = {"control": control_twins(dev)}
+    arms = start_numpy_arms()
+    try:
+        torch_arm = run_arm(dict(backend="torch", device=dev),
+                            twin_arrivals())
+        out["day"] = fleet_day(dev)
+    finally:
+        done = collect_arms(arms)
+    out["engines"] = engine_twins(done, torch_arm)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[fleet-scale] phase: {out['seconds']:.1f} s")
+    log("fleet-scale " + json.dumps({k: v for k, v in out.items()
+                                     if k != "day"}))
+    return out
 
 
 def moe_drops(model, params, toks) -> list:
@@ -2333,6 +2892,13 @@ def main() -> int:
             profile_prefill(path["model"], path["params"], path["prefill_s"])
         del path
         torch.cuda.empty_cache()
+    # the vectorized fleet as a path of its own: it runs none of the five
+    # kernels (its device work is stock torch ops), so its counts stay 0
+    for k in counters.values():
+        k.launches = 0
+    phase_fleet_scale()
+    log("kernels fleet-scale " + json.dumps(
+        {name: k.launches for name, k in counters.items()}))
     t_archs = time.perf_counter()
     for arch in ARCH_LAYERS:            # one arch's weights at a time
         out = run_arch(arch, counters, card["smi"])

@@ -20,9 +20,13 @@ governor bundle) and runs its policies on the merged fleet
     idle/transition energy booked first-class through the node meters.
 
 ``python -m repro_torch.launch.serve --fleet N`` wires it on the CLI
-(``--placement`` for the power planner).  The reference's vectorized
-engines (``SegmentFleet``, ``VectorFleet``, ``ShardedSegmentFleet``) come
-with ROADMAP.md's section A item 5.
+(``--placement`` for the power planner).  The vectorized engines sit
+beside it, with no model: the stepped ``VectorFleet`` (numpy node
+arrays, joule-equivalent to the object engine by contract), the
+event-horizon ``SegmentFleet`` (its booking plane in numpy, or folded on
+the card with ``backend="torch"``) and the sharded
+``ShardedSegmentFleet``; ``--engine vector|vector-seg|vector-torch|
+vector-shard`` selects them on the CLI.
 """
 from repro_torch.fleet.admission import (AdmissionController,  # noqa: F401
                                          AdmissionRejection)
@@ -35,3 +39,7 @@ from repro_torch.fleet.power import (ACTIVE, GATED, PARKED,  # noqa: F401
 from repro_torch.fleet.scheduler import (FleetEvent,  # noqa: F401
                                          FleetPolicy, FleetScheduler,
                                          normalize_arrivals)
+from repro_torch.fleet.segment import SegmentFleet  # noqa: F401
+from repro_torch.fleet.shard import ShardedSegmentFleet  # noqa: F401
+from repro_torch.fleet.vector import (VectorArrivals,  # noqa: F401
+                                      VectorFleet, VectorNodeSpec)

@@ -19,9 +19,10 @@ canary finishing promotes it to ACTIVE.
 forecasts logged) but never gates — the baseline arm of a Ws A/B.
 
 Counterpart of ``repro.fleet.power.planner``.  The Erlang-C sweep runs on
-numpy, the reference's bit-exact backend; its jit backend becomes stock
-torch ops with the vectorized fleet engines (ROADMAP.md, section A item
-5), and until then any other backend is refused.
+numpy, the reference's bit-exact backend, or with ``backend="torch"`` as
+stock torch ops on a device (``fleet.torch_backend``; the card unless
+``device`` names the CPU).  A torch backend that cannot reach its device
+raises: nothing falls back to numpy.
 """
 from __future__ import annotations
 
@@ -31,6 +32,7 @@ from typing import Optional
 import numpy as np
 
 from repro_torch import obs
+from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.fleet.power.forecast import ArrivalForecaster
 from repro_torch.fleet.power.states import (ACTIVE, GATED, PARKED, PROBATION,
                                       WAKING, NodePowerState,
@@ -110,14 +112,14 @@ class FleetPowerPlanner:
 
     def __init__(self, policy: Optional[PowerPlanPolicy] = None,
                  forecaster: Optional[ArrivalForecaster] = None,
-                 backend: str = "numpy"):
-        if backend != "numpy":
-            raise ValueError(
-                f"backend must be 'numpy', got {backend!r}: the jit "
-                f"backend of the reference's Erlang-C sweep comes with the "
-                f"vectorized fleet engines (ROADMAP.md, section A item 5)")
+                 backend: str = "numpy", device: DeviceLike = None):
+        if backend not in ("numpy", "torch"):
+            raise ValueError("backend must be 'numpy' or 'torch', got "
+                             f"{backend!r}")
         self.backend_requested = backend
         self.backend = backend
+        self.device = resolve_device(device) if backend == "torch" \
+            else None
         self.policy = policy or PowerPlanPolicy()
         self.forecaster = forecaster or ArrivalForecaster()
         self.events: list[PlacementEvent] = []
@@ -246,8 +248,15 @@ class FleetPowerPlanner:
 
     def _lq_sweep(self, slots_c, service: float, step: int,
                   horizon: float):
-        """Expected queue depth for every candidate slot count (the numpy
-        sweep)."""
+        """Expected queue depth for every candidate slot count — the torch
+        sweep on ``self.device`` when ``backend="torch"``, the numpy sweep
+        otherwise."""
+        if self.backend == "torch":
+            from repro_torch.fleet.torch_backend import \
+                expected_queue_depth_many_torch
+            return expected_queue_depth_many_torch(
+                slots_c, service, self.forecaster.rate(now=step), horizon,
+                device=self.device)
         return self.forecaster.expected_queue_depth_many(
             slots_c, service, now=step, horizon=horizon)
 

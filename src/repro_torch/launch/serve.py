@@ -30,11 +30,27 @@ A/B baseline; ``--slo-queue-depth`` is the queue SLO the planner must
 hold).  The nodes share one model and its weights, and time-share the
 one device.
 
+The vectorized engines serve the same fleet/placement/admission surface
+with no model (``repro_torch.fleet.vector``; nodes at the H100 envelope):
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --engine vector-seg \
+        --fleet 64 --slots 4 --tick 0.004 --max-new 8 --placement gate \
+        --diurnal 1:8:1,160:12:3 --tenants teamA,teamB
+
+``--engine vector`` is the stepped core, ``vector-seg`` the event-horizon
+segment core, ``vector-torch`` the segment core with its booking plane
+folded on ``--device`` (default: the card; ``--device cpu`` folds on the
+CPU) and ``vector-shard`` the sharded segment core (``--shard-workers``,
+``--shard-parallel``).  ``--trace-sample``, ``--snapshot-every`` and
+``--flight-log`` arm the flight recorder (``repro_torch.obs.flight``).
+
 The model runs on ``--device`` (default: the card; raises without one).
 The printed lines and the persisted files keep the reference's formats,
 so ``scripts/power_report.py --ledger`` and ``scripts/trace_report.py``
 render the port's output unchanged.  ``run(args, model, params)`` is the
-library entry: it serves on weights the caller already holds.
+library entry: it serves on weights the caller already holds;
+``run_vector(args, arrivals)`` serves a caller's ``VectorArrivals`` on a
+vectorized engine.
 """
 from __future__ import annotations
 
@@ -54,15 +70,17 @@ from repro_torch.core.ga import GAConfig
 from repro_torch.core.verifier import Verifier
 from repro_torch.fleet import (AdmissionController, FleetPolicy,
                                FleetPowerPlanner, FleetScheduler, Node,
-                               PowerPlanPolicy)
+                               PowerPlanPolicy, SegmentFleet,
+                               ShardedSegmentFleet, VectorArrivals,
+                               VectorFleet, VectorNodeSpec)
 from repro_torch.models.model import Model
 from repro_torch.serve.engine import Request
 from repro_torch.telemetry import (GovernorPolicy, PowerGovernor, WsBudget,
                                    render_rollups)
 
-#: the one fleet engine ported; the reference's vectorized engines come
-#: with ROADMAP.md's section A item 5
-ENGINES = ("object",)
+#: fleet cores: the object engine (a ServeLoop per node on the model) and
+#: the vectorized cores (no model)
+ENGINES = ("object", "vector", "vector-seg", "vector-torch", "vector-shard")
 #: rungs a pending migration may be re-verified on
 VERIFY_RUNGS = ("measured", "replay")
 
@@ -128,7 +146,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--arch", default="tiny-test")
     ap.add_argument("--reduced", action="store_true")
     ap.add_argument("--device", default=None,
-                    help="device the model serves on (default: the card; "
+                    help="device the model serves on, or vector-torch "
+                         "folds its booking plane on (default: the card; "
                          "'cpu' runs the kernels' plain versions)")
     ap.add_argument("--requests", type=int, default=6)
     ap.add_argument("--slots", type=int, default=4)
@@ -138,7 +157,26 @@ def parser() -> argparse.ArgumentParser:
                     help="number of serving nodes under the scheduler")
     ap.add_argument("--engine", default="object", choices=ENGINES,
                     help="fleet core: the object engine (a ServeLoop per "
-                         "node on the model)")
+                         "node on the model), the stepped vectorized core "
+                         "(vector: numpy node arrays, joule-equivalent by "
+                         "contract, no model), the event-horizon segment "
+                         "engine (vector-seg: quiet stretches advance in "
+                         "one batched update), the segment engine with its "
+                         "booking plane folded on --device (vector-torch), "
+                         "or the sharded segment engine (vector-shard: "
+                         "node shards with a two-level routing argmin, "
+                         "bit-identical ledger to vector-seg)")
+    ap.add_argument("--shard-workers", type=int, default=2,
+                    help="vector-shard: node shards (1/2/4/8...)")
+    ap.add_argument("--shard-parallel", default="auto",
+                    choices=("auto", "inline", "process"),
+                    help="vector-shard booking plane: shared-memory "
+                         "worker processes, the in-process fold (bit-"
+                         "identical), or auto (processes only when more "
+                         "than one CPU is usable)")
+    ap.add_argument("--tick", type=float, default=0.004,
+                    help="vector engines: virtual TickClock seconds per "
+                         "decode/prefill/idle window")
     ap.add_argument("--node", default="node",
                     help="node label prefix (node0..nodeN-1)")
     ap.add_argument("--router", default="energy",
@@ -196,7 +234,208 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--metrics-out", default=None,
                     help="enable the metrics registry; write the Prometheus "
                          "text exposition here")
+    ap.add_argument("--trace-sample", type=float, default=1.0,
+                    help="flight recorder: head-sample this fraction of "
+                         "request ids for full serve.request span trees "
+                         "(deterministic splitmix64 hash; < 1.0 also "
+                         "suppresses per-arrival route/submit instants so "
+                         "the fused dispatch path stays fused)")
+    ap.add_argument("--snapshot-every", type=int, default=0,
+                    help="flight recorder: record one fleet time-series "
+                         "row (watts, active nodes, queue depth, "
+                         "cumulative Ws, arrivals) every N simulated "
+                         "fleet steps (0 = off)")
+    ap.add_argument("--flight-log", default=None,
+                    help="persist the flight-recorder snapshot rows "
+                         "(JSONL) here, rendered offline via "
+                         "scripts/trace_report.py --flight")
     return ap
+
+
+def flight_on(args) -> bool:
+    """Whether ``args`` arm the flight recorder."""
+    return args.trace_sample < 1.0 or args.snapshot_every > 0 \
+        or bool(args.flight_log)
+
+
+def vector_arrivals(args) -> VectorArrivals:
+    """The object engine's arrival recipe as a ``VectorArrivals`` stream:
+    the same rng draws for prompt lengths (token values are drawn and
+    dropped to keep the stream aligned), tenant cycling and due steps."""
+    cfg = get_config(args.arch, reduced=args.reduced)
+    tenants = [t.strip() for t in args.tenants.split(",") if t.strip()] \
+        or ["default"]
+    rng = np.random.default_rng(0)
+    if args.diurnal:
+        dues = parse_diurnal(args.diurnal)
+    elif args.arrival_every > 0:
+        dues = [i * args.arrival_every for i in range(args.requests)]
+    else:
+        dues = [0] * args.requests
+    plens = []
+    for _ in dues:
+        plen = int(rng.integers(4, 12))
+        rng.integers(2, cfg.vocab_size, size=plen)   # keep the rng
+        plens.append(plen)                           # stream aligned
+    return VectorArrivals(
+        due=dues,
+        tenant_idx=[i % len(tenants) for i in range(len(dues))],
+        prompt_len=plens,
+        max_new=[args.max_new] * len(dues),
+        tenant_names=tenants)
+
+
+def run_vector(args, arrivals: Optional[VectorArrivals] = None,
+               max_steps: int = 10_000) -> dict:
+    """``--engine vector*``: the same fleet/placement/admission surface
+    through the vectorized cores — no model, no weights; token values
+    never exist, only the joule account.  Nodes meter at the H100
+    envelope.  ``arrivals`` defaults to the object engine's recipe
+    (``vector_arrivals``), so the engines are A/B-comparable run for run;
+    ``max_steps`` caps the fleet steps (the CLI's scripts end well inside
+    the default; a simulated day of 2000-step hours needs 48000).
+    ``vector-torch`` folds the booking plane on ``args.device`` (default
+    the card; raises without one).  Prints the reference's report lines
+    and returns the fleet, the arrivals, the finished rids, admission,
+    attribution, the sampled scale-up and the wall seconds."""
+    from repro_torch.core.power import H100
+    from repro_torch.telemetry import envelope_for
+
+    if args.trace_spans or args.metrics_out:
+        obs.enable()
+    if flight_on(args):
+        obs.set_flight(obs.FlightRecorder(sample_rate=args.trace_sample,
+                                          snapshot_every=args.snapshot_every,
+                                          log_path=args.flight_log))
+        if args.trace_sample < 1.0 and not obs.TRACER.enabled:
+            obs.enable()        # sampled trees need a live tracer
+    if arrivals is None:
+        arrivals = vector_arrivals(args)
+    env = envelope_for(H100)
+    specs = [VectorNodeSpec(f"{args.node}{i}", env, slots=args.slots,
+                            step_s=args.tick, max_seq=args.max_seq)
+             for i in range(max(args.fleet, 1))]
+    admission = None
+    if args.admission:
+        admission = AdmissionController(
+            parse_budgets(args.admission, args.admission_window))
+    plan = None
+    if args.placement:
+        plan = PowerPlanPolicy(mode=args.placement,
+                               slo_queue_depth=args.slo_queue_depth)
+    policy = FleetPolicy(flush_every=args.flush_every,
+                         checkpoint_every=args.checkpoint_every,
+                         router=args.router,
+                         migrate_on_drift=False)
+    if args.engine == "vector":
+        vec = VectorFleet(specs, policy=policy, plan=plan,
+                          admission=admission, loop_model="serve")
+    elif args.engine == "vector-shard":
+        vec = ShardedSegmentFleet(specs, policy=policy, plan=plan,
+                                  admission=admission,
+                                  loop_model="serve",
+                                  shards=args.shard_workers,
+                                  parallel=args.shard_parallel)
+    else:
+        torch_plane = args.engine == "vector-torch"
+        vec = SegmentFleet(specs, policy=policy, plan=plan,
+                           admission=admission, loop_model="serve",
+                           backend="torch" if torch_plane else "numpy",
+                           device=args.device if torch_plane else None)
+    t0 = time.time()
+    finished = vec.run(arrivals, max_steps=max_steps)
+    wall = time.time() - t0
+
+    if admission is not None:
+        for rej in admission.rejections:
+            print(f"req {rej.rid}: tenant={rej.tenant} THROTTLED @step "
+                  f"{rej.step} ({rej.reason})")
+    rows = vec.results()
+    n_tok = sum(r["tokens"] for r in rows if r["finished"])
+    for r in rows:
+        if not r["finished"]:
+            continue
+        print(f"req {r['rid']}: tenant={r['tenant']} node={r['node']} "
+              f"({r['tokens']} tokens) {r['prefill_ws']:.3f}Ws prefill + "
+              f"{r['decode_ws']:.3f}Ws decode")
+    print(f"\nserved {len(finished)} requests, {n_tok} tokens in "
+          f"{wall:.2f}s simulated on {vec.n} nodes ({vec.steps} fleet "
+          f"steps, router={args.router}, engine={args.engine})")
+    for line in render_rollups(vec.ledger, label="fleet[vector]"):
+        print(line)
+    summary = vec.summary()
+    for d in summary["nodes"]:
+        print(f"node {d['name']}: served={d['served']} "
+              f"{d['total_ws']:.2f}Ws parked={d['parked']}")
+    if plan is not None:
+        for ev in vec.events:
+            print(f"placement {ev.action} @step {ev.step}: {ev.node} "
+                  f"(rate={ev.rate:.3f}/step, "
+                  f"Lq={ev.queue_depth_est:.2f}, "
+                  f"keep {ev.active_target} nodes) {ev.reason}")
+        p = summary["placement"]
+        print(f"placement[{args.placement}]: states={p['states']} "
+              f"max_queue_depth={p['max_queue_depth']} "
+              f"(SLO {args.slo_queue_depth:g})")
+    if admission is not None:
+        for tenant, row in summary["admission"].items():
+            print(f"admission {tenant}: spent {row['spent_ws']:.2f}Ws of "
+                  f"{row['budget_ws']:.2f}Ws, rejected {row['rejected']} "
+                  f"submits (0.00Ws booked)")
+    if args.ledger_out:
+        print(f"ledger -> {vec.ledger.to_json(args.ledger_out)}")
+    result = None
+    if args.trace_spans:
+        result = obs.attribute_joules(list(obs.TRACER.spans), vec.ledger)
+        for node_name, row in sorted(
+                result.conservation(vec.ledger).items()):
+            flag = "ok" if row["ok"] else "DRIFT"
+            print(f"attribution {node_name}: ledger {row['ledger_ws']:.4f}Ws "
+                  f"attributed {row['attributed_ws']:.4f}Ws "
+                  f"(delta {row['delta']:+.2e}) {flag}")
+        spans_out = str(Path(args.trace_spans).with_suffix(".spans.jsonl"))
+        print(f"spans  -> "
+              f"{obs.write_chrome_trace(result.all_spans(), args.trace_spans)}"
+              f" (+ {obs.write_spans_jsonl(result.all_spans(), spans_out)})")
+        if obs.TRACER.dropped:
+            print(f"spans  dropped {obs.TRACER.dropped} past the tracer cap")
+    if args.metrics_out:
+        print(f"metrics -> {obs.METRICS.write_prometheus(args.metrics_out)}")
+        h = obs.METRICS.histogram("queue_wait_s")
+        print("queue_wait_s " + " ".join(
+            f"p{int(q * 100)}={h.quantile(q):.4f}s" for q in obs.QUANTILES))
+    fl = obs.FLIGHT
+    sa = None
+    if fl.enabled:
+        if args.flight_log:
+            print(f"flight -> {fl.write_jsonl()} "
+                  f"({len(fl.snapshots)} snapshots)")
+        elif fl.snapshot_every > 0:
+            print(f"flight: {len(fl.snapshots)} snapshots "
+                  f"(pass --flight-log to persist)")
+        if fl.sampling and obs.TRACER.enabled:
+            sa = obs.attribute_joules_sampled(
+                list(obs.TRACER.spans), vec.ledger, fl.sample_rate,
+                population=fl.population)
+            if sa.scaled_ws is None:
+                print(f"flight sampled 0/{sa.total_requests} requests "
+                      f"(rate {fl.sample_rate:g}) — nothing to scale up")
+            else:
+                print(f"flight sampled {sa.sampled_requests}/"
+                      f"{sa.total_requests} requests "
+                      f"(rate {fl.sample_rate:g}): scaled "
+                      f"{sa.scaled_ws:.2f}Ws vs ledger "
+                      f"{sa.ledger_request_ws:.2f}Ws request-phase "
+                      f"(err {sa.error_ws:+.2f}Ws, bound "
+                      f"{sa.error_bound_ws:.2f}Ws) "
+                      f"{'ok' if sa.ok else 'OUT OF BOUND'}")
+    prof = summary.get("profile")
+    if prof:
+        for p, row in sorted(prof["phases"].items()):
+            print(f"profile {p}: {row['seconds']:.4f}s x{row['count']}")
+    return {"fleet": vec, "arrivals": arrivals, "finished": finished,
+            "admission": admission, "attribution": result, "sampled": sa,
+            "wall_s": wall}
 
 
 def run(args, model: Optional[Model] = None, params=None,
@@ -211,7 +450,10 @@ def run(args, model: Optional[Model] = None, params=None,
     the arch's model is built on ``args.device`` with seeded weights.
     ``measured`` is the governors' measured-rung backend (default: a
     ``MeasuredBackend`` on the served weights, its draw from the card's
-    NVML counter)."""
+    NVML counter).  A vectorized ``args.engine`` goes to ``run_vector``
+    (no model)."""
+    if args.engine != "object":
+        return run_vector(args)
     if args.trace_spans or args.metrics_out:
         obs.enable()
     if model is None:
@@ -367,7 +609,21 @@ def run(args, model: Optional[Model] = None, params=None,
 
 
 def main(argv: Optional[list] = None) -> dict:
-    return run(parser().parse_args(argv))
+    ap = parser()
+    args = ap.parse_args(argv)
+    if args.engine != "object":
+        for flag, name in ((args.govern, "--govern"),
+                           (args.trace_out, "--trace-out"),
+                           (args.verify_rung, "--verify-rung")):
+            if flag:
+                ap.error(f"{name} is object-engine only (per-node "
+                         f"governors and power traces need the object "
+                         f"loops) — drop it or use --engine object")
+    elif flight_on(args):
+        ap.error("--trace-sample/--snapshot-every/--flight-log ride the "
+                 "vectorized cores — pick --engine vector/vector-seg/"
+                 "vector-torch/vector-shard")
+    return run(args)
 
 
 if __name__ == "__main__":

@@ -19,8 +19,10 @@ Everything is off by default: instrumented sites read ``obs.TRACER`` /
 serving hot path pays one attribute check per edge when tracing is off.
 ``enable()`` swaps live instances in for the whole process; exporters
 (``write_chrome_trace``, ``write_spans_jsonl``) render what they
-collected, in the reference's formats.  The reference's flight recorder
-rides its vectorized fleet engines and comes with them (ROADMAP.md).
+collected, in the reference's formats.  The flight recorder
+(``repro_torch.obs.flight``: head sampling, time-series snapshots and the
+engine self-profiler) rides the vectorized fleet engines; call sites read
+``obs.FLIGHT`` and ``set_flight`` installs a live one.
 """
 from repro_torch.obs.attribution import (AttributionResult,  # noqa: F401
                                          SampledAttribution,
@@ -29,6 +31,9 @@ from repro_torch.obs.attribution import (AttributionResult,  # noqa: F401
 from repro_torch.obs.export import (chrome_trace_events,  # noqa: F401
                                     read_chrome_trace, read_spans_jsonl,
                                     write_chrome_trace, write_spans_jsonl)
+from repro_torch.obs.flight import (SNAPSHOT_FIELDS,  # noqa: F401
+                                    FlightRecorder, NullFlight,
+                                    PhaseProfiler, read_flight_jsonl)
 from repro_torch.obs.metrics import (DEFAULT_BUCKETS, QUANTILES, Counter,
                                      Gauge, Histogram, MetricsRegistry,
                                      NullMetrics)
@@ -39,16 +44,21 @@ __all__ = [
     "attribute_joules_sampled",
     "chrome_trace_events", "read_chrome_trace", "read_spans_jsonl",
     "write_chrome_trace", "write_spans_jsonl",
+    "SNAPSHOT_FIELDS", "FlightRecorder", "NullFlight", "PhaseProfiler",
+    "read_flight_jsonl",
     "DEFAULT_BUCKETS", "QUANTILES", "Counter", "Gauge", "Histogram",
     "MetricsRegistry", "NullMetrics",
     "FLEET_ROW", "NullTracer", "Span", "Tracer",
-    "TRACER", "METRICS", "set_tracer", "set_metrics", "enable", "disable",
+    "TRACER", "METRICS", "FLIGHT", "set_tracer", "set_metrics",
+    "set_flight", "enable", "disable",
 ]
 
 #: module-level instruments every call site reads (``obs.TRACER`` /
-#: ``obs.METRICS``); no-ops until ``enable()``/``set_*`` swap them
+#: ``obs.METRICS`` / ``obs.FLIGHT``); no-ops until ``enable()``/``set_*``
+#: swap them
 TRACER = NullTracer()
 METRICS = NullMetrics()
+FLIGHT = NullFlight()
 
 
 def set_tracer(tracer) -> "Tracer":
@@ -63,6 +73,14 @@ def set_metrics(metrics) -> "MetricsRegistry":
     return METRICS
 
 
+def set_flight(flight) -> "FlightRecorder":
+    """Install a live ``FlightRecorder`` (sampling + snapshots); ``None``
+    restores the no-op."""
+    global FLIGHT
+    FLIGHT = flight if flight is not None else NullFlight()
+    return FLIGHT
+
+
 def enable(clock=None, maxlen: int = 200_000):
     """Turn tracing + metrics on process-wide; returns the live pair."""
     kw = {"maxlen": maxlen} if clock is None else {"clock": clock,
@@ -75,3 +93,4 @@ def disable() -> None:
     check per edge)."""
     set_tracer(None)
     set_metrics(None)
+    set_flight(None)

@@ -774,3 +774,97 @@ def test_measured_train_trial_on_the_card(cuda, monkeypatch):
     assert launches["flash_attention"] > 0 and launches["swiglu"] > 0
     check_window("trial", m.trace.meta["counter"])
     assert m.energy_j == pytest.approx(m.trace.integrate(), rel=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# The fleet's torch backend on the card (stock torch ops, no CUDA C++)
+# ---------------------------------------------------------------------------
+
+def _fleet_engine(backend: str, **kw):
+    from repro_torch.core.power import R740_ARRIA10
+    from repro_torch.fleet import (FleetPolicy, PowerPlanPolicy,
+                                   PowerStatePolicy, SegmentFleet,
+                                   VectorNodeSpec)
+    from repro_torch.telemetry import node_envelope
+    env = node_envelope(R740_ARRIA10, accelerated=True)
+    specs = [VectorNodeSpec(f"pod{i:02d}", env, slots=4, step_s=0.004,
+                            max_seq=64) for i in range(32)]
+    ppol = PowerPlanPolicy(
+        mode="gate", slo_queue_depth=4.0, plan_every=16, min_active=1,
+        min_active_steps=64, horizon_steps=64.0,
+        states=PowerStatePolicy(gate_watts=3.0, boot_energy_ws=2.0,
+                                warmup_steps=8, cooldown_steps=32))
+    return SegmentFleet(specs, policy=FleetPolicy(
+        flush_every=8, checkpoint_every=16, migrate_on_drift=False),
+        plan=ppol, loop_model="serve", backend=backend, **kw)
+
+
+def test_fleet_control_plane_twins_on_the_card(cuda):
+    """Route winners exact with marginal and load ties; the Erlang-C sweep
+    at 1024 nodes x 4 slots (c_max 4096) within rtol 1e-9, atol 1e-12."""
+    from repro_torch.fleet.power.forecast import ArrivalForecaster
+    from repro_torch.fleet.torch_backend import (
+        expected_queue_depth_many_torch, route_argmin_np, route_argmin_torch)
+    rng = np.random.default_rng(5)
+    for trial in range(40):
+        n = 1024
+        marg = rng.integers(0, 4, n) * 0.125
+        marg[rng.random(n) < 0.1] = np.inf
+        load = rng.integers(0, 3, n) / 4.0
+        rank = rng.permutation(n)
+        active = rng.random(n) < (0.6 if trial % 4 else 0.002)
+        assert route_argmin_torch(marg, load, rank, active, device=cuda) \
+            == route_argmin_np(marg, load, rank, active)
+    servers = np.arange(4, 4097, 4)
+    fc = ArrivalForecaster()
+    for lam in (0.01, 3.0, 300.0):
+        for service in (4.0, 16.0):
+            fc._n, fc._gap_ewma, fc._last_t = 1, 1.0 / lam, 0.0
+            want = fc.expected_queue_depth_many(servers, service, now=0.0)
+            got = expected_queue_depth_many_torch(servers, service, lam,
+                                                  device=cuda)
+            np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12)
+
+
+def test_torch_booking_plane_on_the_card(cuda):
+    """The segment engine with its booking plane folded on the card: the
+    numpy plane's events and tokens, its ledger within rtol 1e-12, the
+    carries on the card until finalize, every chunk timed."""
+    from repro_torch.fleet import VectorArrivals
+    arr = VectorArrivals.diurnal(4000, tenants=4, hours=24,
+                                 steps_per_hour=100, max_new=8, seed=7)
+    ref = _fleet_engine("numpy")
+    fin_ref = ref.run(arr, max_steps=20_000)
+    got = _fleet_engine("torch", device=cuda)
+    assert got.device == cuda
+    fin = got.run(arr, max_steps=20_000)
+    assert fin == fin_ref and len(fin) == 4000
+    assert [(e.step, e.node, e.action) for e in got.events] == \
+        [(e.step, e.node, e.action) for e in ref.events]
+    for r, q in zip(got.results(), ref.results()):
+        assert (r["rid"], r["node"], r["tokens"], r["finished"]) == \
+            (q["rid"], q["node"], q["tokens"], q["finished"])
+        assert r["decode_ws"] == pytest.approx(q["decode_ws"], rel=1e-12)
+    assert got.total_ws == pytest.approx(ref.total_ws, rel=1e-12)
+    for key, cell in ref.ledger.cells.items():
+        c = got.ledger.cells[key]
+        assert c.count == cell.count and c.peak_w == cell.peak_w
+        assert c.ws == pytest.approx(cell.ws, rel=1e-12)
+    acc = got._acc
+    assert all(t.device.type == "cuda" for t in acc._dec_carry)
+    rows = acc.timings()
+    assert rows and sum(r["records"] for r in rows) == acc.records
+    assert all(r["h2d_ms"] >= 0.0 and r["fold_ms"] > 0.0 for r in rows)
+
+
+def test_planner_torch_backend_on_the_card(cuda):
+    from repro_torch.fleet import FleetPowerPlanner, PowerPlanPolicy
+    planner = FleetPowerPlanner(policy=PowerPlanPolicy(), backend="torch")
+    assert planner.device.type == "cuda"
+    for _ in range(5):
+        planner.forecaster.observe(float(_))
+    slots = np.cumsum(np.full(1024, 4))
+    got = planner._lq_sweep(slots, 16.0, 5, 64.0)
+    want = planner.forecaster.expected_queue_depth_many(
+        slots, 16.0, now=5, horizon=64.0)
+    np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12)

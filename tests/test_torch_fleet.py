@@ -540,11 +540,16 @@ def _diurnal(n_a=8, trough=150, n_b=12, spacing_b=3, max_new=8):
 
 
 def test_planner_refuses_every_backend_but_numpy():
+    """numpy, and the torch sweep on a named device, are the only
+    backends (the port has no jax; tests/test_torch_fleet_backend.py holds
+    the torch sweep)."""
     assert FleetPowerPlanner(backend="numpy").backend == "numpy"
-    with pytest.raises(ValueError, match="section A item 5"):
+    assert FleetPowerPlanner(backend="torch", device="cpu").backend == \
+        "torch"
+    with pytest.raises(ValueError, match="'numpy' or 'torch'"):
         FleetPowerPlanner(backend="jax")
     with pytest.raises(ValueError):
-        FleetPowerPlanner(backend="torch")
+        FleetPowerPlanner(backend="cuda")
     with pytest.raises(ValueError):
         PowerPlanPolicy(mode="sometimes")
 

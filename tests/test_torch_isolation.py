@@ -48,7 +48,12 @@ def test_the_scan_sees_the_whole_port():
             "src/repro_torch/data/pipeline.py",
             "src/repro_torch/ckpt/checkpoint.py",
             "src/repro_torch/ft/driver.py",
-            "src/repro_torch/launch/train.py"} <= names
+            "src/repro_torch/launch/train.py",
+            "src/repro_torch/fleet/vector.py",
+            "src/repro_torch/fleet/segment.py",
+            "src/repro_torch/fleet/shard.py",
+            "src/repro_torch/fleet/torch_backend.py",
+            "src/repro_torch/obs/flight.py"} <= names
     assert _forbidden("jax.numpy") and _forbidden("repro.models")
     assert not _forbidden("repro_torch.models")
 

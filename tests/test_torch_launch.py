@@ -3,10 +3,14 @@
 Runs the object engine on the CPU at tiny-test (``--device cpu``) with
 two nodes, governors, consolidate-and-gate placement and per-tenant
 admission, and renders what it persisted through the reference's jax-free
-``scripts/power_report.py --ledger`` and ``scripts/trace_report.py``.  The
-flags of engines not ported yet are refused, and without ``--device`` the
-CLI needs a card.  On reduced granite-moe-1b-a400m it serves the tokens
-and bills of the reference CLI on the same weights.
+``scripts/power_report.py --ledger`` and ``scripts/trace_report.py``.
+Object-engine flags on the vectorized engines (and the reverse) are
+refused, and without ``--device`` the CLI needs a card.  On reduced
+granite-moe-1b-a400m it serves the tokens and bills of the reference CLI
+on the same weights.  Each vectorized engine (``--engine vector |
+vector-seg | vector-torch | vector-shard``) prints the reference CLI's
+lines for the same arrival script at the same envelope, and its flight
+log renders through ``scripts/trace_report.py --flight``.
 """
 import dataclasses
 import subprocess
@@ -122,8 +126,14 @@ def test_cli_files_render_through_the_references_scripts(cli_run):
                                   ["--trace-sample", "0.5"],
                                   ["--flight-log", "f.jsonl"]])
 def test_cli_refuses_what_is_not_ported(tmp_path, flag):
+    """Refused before anything is built: the vectorized engines with the
+    object engine's --govern and --trace-out (in ``_argv``), the compiled
+    rung, and the flight flags on the object engine; also the reference's
+    jax engine, which the port names vector-torch."""
     with pytest.raises(SystemExit):
-        serve.parser().parse_args(_argv(tmp_path, *flag))
+        serve.main(_argv(tmp_path, *flag))
+    with pytest.raises(SystemExit):
+        serve.parser().parse_args(["--engine", "vector-jax"])
 
 
 def test_cli_needs_a_card_without_device(tmp_path, monkeypatch):
@@ -262,3 +272,117 @@ def test_cli_serves_a_moe_arch_as_the_reference_cli(tmp_path, monkeypatch,
     assert len(own["finished"]) == 6
     assert all(1 <= len(r.out) <= 6 and all(0 <= t < vocab for t in r.out)
                for r in own["finished"])
+
+
+# ---------------------------------------------------------------------------
+# The vectorized engines
+# ---------------------------------------------------------------------------
+
+VECTOR_ARGV = ["--fleet", "4", "--slots", "2", "--max-new", "6",
+               "--placement", "gate", "--tenants", "teamA,teamB",
+               "--diurnal", "1:8:1,160:12:3,300:10:1",
+               "--admission", "teamB=60", "--tick", "0.004",
+               "--flush-every", "4", "--checkpoint-every", "8"]
+#: the port's engine and the reference's twin of it
+VECTOR_TWINS = {"vector": "vector", "vector-seg": "vector-seg",
+                "vector-torch": "vector-seg", "vector-shard": "vector-shard"}
+
+
+def _report_lines(text: str) -> list:
+    """The CLI's report without what the host's clock moves (the wall
+    time, the self-profiler's rows)."""
+    import re
+    return [re.sub(r"in \d+\.\d+s simulated", "in _s simulated", line)
+            for line in text.splitlines()
+            if line and not line.startswith("profile ")]
+
+
+@pytest.mark.parametrize("engine", sorted(VECTOR_TWINS))
+def test_vector_cli_prints_the_reference_clis_report(engine, monkeypatch,
+                                                     capsys, tmp_path):
+    """The same arrival script on both CLIs, the reference's nodes at the
+    port's H100 envelope: the same throttles, request lines (node, tokens,
+    Ws), rollups, node lines and placement events."""
+    import repro.telemetry as jtelemetry
+    from repro.launch import serve as jserve
+    from repro.telemetry.dvfs import PowerEnvelope as JPowerEnvelope
+    env = envelope_for(power.H100)
+    monkeypatch.setattr(jtelemetry, "envelope_for",
+                        lambda hw: JPowerEnvelope(**dataclasses.asdict(env)))
+    extra = ["--shard-workers", "2", "--shard-parallel", "inline"] \
+        if engine == "vector-shard" else []
+    dev = ["--device", "cpu"] if engine == "vector-torch" else []
+    monkeypatch.setattr(sys, "argv", ["serve", "--engine",
+                                      VECTOR_TWINS[engine], *VECTOR_ARGV,
+                                      *extra])
+    try:
+        jserve.main()
+    finally:
+        from repro import obs as jobs
+        jobs.disable()
+    want = _report_lines(capsys.readouterr().out)
+    from repro_torch import obs
+    try:
+        out = serve.main(["--engine", engine, *VECTOR_ARGV, *extra, *dev])
+    finally:
+        obs.disable()
+    got = _report_lines(capsys.readouterr().out)
+    got = [line.replace(f"engine={engine}",
+                        f"engine={VECTOR_TWINS[engine]}") for line in got]
+    assert got == want
+    assert any(line.startswith("placement gate") for line in got)
+    assert any("THROTTLED" in line for line in got)
+    assert out["fleet"].summary()["engine"] == engine
+    rows = out["fleet"].results()
+    assert {r["rid"] for r in rows if r["finished"]} == set(out["finished"])
+
+
+def test_vector_cli_flight_log_renders(tmp_path, capsys):
+    """``--engine vector-torch --device cpu`` with the flight recorder:
+    sampled request trees, snapshot rows persisted, rendered by the
+    reference's ``scripts/trace_report.py --flight``."""
+    from repro_torch import obs
+    log = tmp_path / "flight.jsonl"
+    try:
+        out = serve.main(["--engine", "vector-torch", "--device", "cpu",
+                          *VECTOR_ARGV, "--trace-sample", "0.5",
+                          "--snapshot-every", "20", "--flight-log",
+                          str(log)])
+    finally:
+        obs.disable()
+    text = capsys.readouterr().out
+    assert f"flight -> {log}" in text
+    assert "flight sampled" in text and "ok" in text
+    assert out["sampled"] is not None and out["sampled"].ok
+    r = subprocess.run([sys.executable, str(ROOT / "scripts" /
+                                            "trace_report.py"),
+                        "--flight", str(log), "--steps-per-hour", "50"],
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "flight log:" in r.stdout
+
+
+def test_vector_torch_cli_needs_a_card_without_device(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        serve.main(["--engine", "vector-torch", *VECTOR_ARGV])
+
+
+def test_run_vector_serves_a_callers_arrivals(capsys):
+    """The library entry on the caller's ``VectorArrivals`` (the chip
+    script's day of traffic, here a small one)."""
+    from repro_torch.fleet import VectorArrivals
+    arr = VectorArrivals.diurnal(600, tenants=2, hours=24,
+                                 steps_per_hour=20, max_new=4, seed=1)
+    args = serve.parser().parse_args(["--engine", "vector-torch",
+                                      "--device", "cpu", "--fleet", "8",
+                                      "--slots", "4", "--placement",
+                                      "gate"])
+    out = serve.run_vector(args, arrivals=arr)
+    capsys.readouterr()
+    assert out["arrivals"] is arr
+    assert len(out["finished"]) == 600
+    fleet = out["fleet"]
+    bills = sum(r["prefill_ws"] + r["decode_ws"] for r in fleet.results())
+    infra = fleet.ledger.rollup("tenant")["fleet"].ws
+    assert bills + infra == pytest.approx(fleet.total_ws, rel=1e-9)
