@@ -68,7 +68,7 @@ a non-zero exit and no result line:
               serve    ``ServeLoop`` (8 slots, max_seq 256) billing a
                        ``DecodeEnergyMeter`` at the accelerated R740 node
                        point: 8 requests, 16 new tokens each;
-              offload  (qwen2-7b's path, on the first 14 of its 28 loaded
+              offload  (qwen2-7b's path, on the first 7 of its 28 loaded
                        layers, OFFLOAD_LAYERS) the paper's offload search,
                        ``core.adapt`` at prefill_32k_b1: GA and narrowing
                        on the analytic rung, the finalists
@@ -77,10 +77,14 @@ a non-zero exit and no result line:
                        seconds, W, Ws and fitness or its penalty, the chosen
                        plan; fails unless a finalist is confirmed on the
                        measured rung and the chosen plan's trial launched
-                       the kernels its genes name;
+                       the kernels its genes name; when no finalist runs
+                       stock attention (the sharding genes are inert on
+                       one card, so the finalists can be kernel plans
+                       apart only in them) the arch's plan is measured
+                       beside them;
               counts   the kernels' launch counts over that model's path,
                        each kernel of the path > 0;
-              fleet    (qwen2-7b's path, on the first 14 of its 28 loaded
+              fleet    (qwen2-7b's path, on the first 7 of its 28 loaded
                        layers, FLEET_LAYERS, counted as a
                        path of its own: swiglu must launch) Step 7 and the
                        object fleet: (a) the serving CLI's library entry
@@ -99,6 +103,20 @@ a non-zero exit and no result line:
                        the card at decode_32k_b8 (a 32k cache at batch 8,
                        16 decode steps a call, a 5-s NVML window), neither
                        a penalty; the event and both trials printed;
+              plans    (qwen2-7b's path, on the first OFFLOAD_LAYERS of
+                       its loaded layers, counted as a path of its own: its
+                       plans run stock ops) the sharding plan: (a)
+                       ``launch.mesh.make_host_mesh()``, the (1, 1) mesh
+                       over its own one-rank NCCL group; the rules of the
+                       arch's plan and of the three optimized plans
+                       resolved over the parameters, a decode_32k_b8
+                       cache and every shape's batch, each spec replicated;
+                       (b) the arch's plan and ``optimized_plan(arch,
+                       "decode")`` (int8 KV cache) measured on that mesh at
+                       decode_32k_b8, each NVML window checked, each plan's
+                       last logits held to the other's (PREFILL_TOL);
+                       (c) a 256-chip, 16-way TP context, which the
+                       measured rung must refuse; the group destroyed;
   6. profile  qwen2-7b's 8 requests served again, and one bf16 prefill of
               mamba2-1.3b, under torch.profiler: kernels by device time,
               the CUDA runtime calls by host time, and the device's busy
@@ -1315,8 +1333,8 @@ OFFLOAD_SLO_S = 0.5
 OFFLOAD_SHAPE = "prefill_32k_b1"
 #: the search's depth: the first layers of the loaded weights (shared, not
 #: copied), cut from 28 for the run's time: each stock-attention finalist
-#: takes ~20 s a 32k prefill at 28 layers, four calls a trial
-OFFLOAD_LAYERS = 14
+#: takes ~20 s a 32k prefill at 28 layers (~10 s at 14), four calls a trial
+OFFLOAD_LAYERS = 7
 
 
 class Recorded:
@@ -1355,8 +1373,8 @@ def phase_offload(model, params, source) -> dict:
     card: finalists and the smoke trial on the measured rung, on the
     loaded weights' first OFFLOAD_LAYERS layers."""
     from repro_torch.core.adapt import adapt
-    from repro_torch.core.backends import (MeasuredBackend, plan_kernels,
-                                           plan_tag)
+    from repro_torch.core.backends import (MeasureContext, MeasuredBackend,
+                                           plan_kernels, plan_tag)
     from repro_torch.core.destinations import Requirement
     from repro_torch.core.verifier import RungPolicy
     from repro_torch.telemetry.nvml import check_window
@@ -1373,6 +1391,16 @@ def phase_offload(model, params, source) -> dict:
                                  smoke="measured"),
                 verify=True, backends={"measured": rung},
                 log=lambda m: log(f"[offload] {m}"))
+    finalists = [plan_tag(p) for p, _ in rung.trials]
+    log(f"[offload] finalists and smoke measured on the card: "
+        + "; ".join(f"{plan_tag(p)} {p.describe()}" for p, _ in rung.trials))
+    if all(p.attn_impl == "pallas" for p, _ in rung.trials):
+        # the sharding genes are inert on one card, so the GA's finalists
+        # can be kernel plans apart only in them: the paper's comparison
+        # then takes the arch's plan (chunked stock attention) beside them
+        log(f"[offload] no stock-attention plan among the finalists: the "
+            f"arch's plan {plan_tag(cfg.plan)} measured as one extra trial")
+        rung.measure(MeasureContext(cfg, OFFLOAD_SHAPE), cfg.plan)
     for plan, m in rung.trials:
         what = f"[offload] trial plan {plan_tag(plan)} ({plan.attn_impl} " \
                f"attention, chunk {plan.attn_chunk}, {plan.mlp_impl} mlp, " \
@@ -1412,8 +1440,10 @@ def phase_offload(model, params, source) -> dict:
     chosen = rep.selection.chosen
     out = {"stage": chosen.name, "plan": chosen.genome.describe(),
            "kernels": want, "smoke": smoke, "logits_max_abs_err": agree,
+           "finalists": finalists,
            "seconds_total": time.perf_counter() - t0,
-           "trials": [{"plan": plan_tag(p), "attn_impl": p.attn_impl,
+           "trials": [{"plan": plan_tag(p), "describe": p.describe(),
+                       "attn_impl": p.attn_impl,
                        "attn_chunk": p.attn_chunk, "mlp_impl": p.mlp_impl,
                        "kv_cache_dtype": p.kv_cache_dtype, "ok": m.ok,
                        "error": m.error, "seconds": m.seconds,
@@ -1431,13 +1461,13 @@ def phase_offload(model, params, source) -> dict:
 #: of 8 slots on the one card, paced arrivals, teamB under a Ws budget
 #: small enough to throttle it (its window is the whole 64-step run).  A
 #: qwen2-7b request bills 400-650 Ws at the H100 envelope on the card at
-#: 28 layers, about half that at FLEET_LAYERS, so teamB is served about
-#: twice and then throttled
-FLEET_BUDGET_WS = 450.0
+#: 28 layers, 110-225 Ws at 14; the budget follows the depth, so teamB is
+#: served about twice and then throttled
+FLEET_BUDGET_WS = 225.0
 #: the fleet phase's depth: the loaded weights' first layers (shared), cut
 #: from 28 for the run's time (its decode steps and the governors' trials
-#: at decode_32k_b8 are host-bound, 7 s a call at 28 layers)
-FLEET_LAYERS = 14
+#: at decode_32k_b8 are host-bound, 7 s a call at 28 layers, ~3 s at 14)
+FLEET_LAYERS = 7
 FLEET_ARGS = ["--fleet", "2", "--slots", "8", "--max-seq", "256",
               "--max-new", "16", "--requests", "16",
               "--tenants", "teamA,teamB",
@@ -1726,6 +1756,119 @@ def run_fleet(model, params, source, counters: dict) -> dict:
     if not launches["swiglu"]:
         raise RuntimeError(f"fleet: swiglu never launched ({launches})")
     return launches
+
+
+#: the plans phase: the optimized decode plan against the arch's plan at
+#: decode_32k_b8, as the fleet phase's Step 7 trials run it (16 decode
+#: steps a call from a seeded cache), on the loaded weights' first
+#: OFFLOAD_LAYERS layers
+PLANS_SHAPE = "decode_32k_b8"
+
+
+def phase_plans(model, params, source) -> dict:
+    """The sharding plan on the card, on qwen2-7b's loaded weights cut to
+    OFFLOAD_LAYERS.  (a) ``make_host_mesh()``: the (1, 1) mesh over its own
+    one-rank NCCL group; the rules of the arch's plan and of the three
+    optimized plans resolved over the parameters, a decode_32k_b8 cache
+    (on the meta device) and each shape's batch, every spec replicated;
+    (b) the arch's plan and ``optimized_plan(arch, "decode")`` (int8 KV
+    cache) measured on that mesh, each window checked and each plan's last
+    logits held to the other's; (c) a 256-chip, 16-way TP context refused
+    by the measured rung.  The group is destroyed at the end."""
+    import dataclasses
+
+    import torch.distributed as dist
+    from repro_torch.configs import SHAPES
+    from repro_torch.configs.optimized import optimized_plan
+    from repro_torch.core.backends import (MeasureContext, MeasuredBackend,
+                                           plan_tag)
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.models import transformer as T
+    from repro_torch.models.model import Model
+    from repro_torch.parallel import param_sharding as PS
+    from repro_torch.parallel.sharding import make_rules, n_shards
+    from repro_torch.telemetry.nvml import check_window
+    t0 = time.perf_counter()
+    params, cfg = first_layers(params, model.cfg, OFFLOAD_LAYERS)
+    log(f"[plans] {cfg.name}: layers {OFFLOAD_LAYERS} of "
+        f"{model.cfg.n_layers} (the offload search's cut)")
+    plans = {"arch": cfg.plan}
+    plans.update({k: optimized_plan(cfg.name, k)
+                  for k in ("prefill", "decode", "train")})
+    out: dict = {"specs": {}, "trials": {}}
+    with host_mesh(device=model.device) as dm:
+        log(f"[plans] host mesh {tuple(dm.shape)} {dm.mesh_dim_names} on "
+            f"{dm.device_type}, {dist.get_backend()} group of "
+            f"{dist.get_world_size()}")
+        if tuple(dm.shape) != (1, 1):
+            raise RuntimeError(f"plans: host mesh {tuple(dm.shape)}")
+        for name, p in plans.items():
+            pcfg = dataclasses.replace(cfg, plan=p)
+            rules = make_rules(pcfg, dm, p)
+            cache = T.init_cache(pcfg, 8, 32768, torch.device("meta"))
+            specs = {
+                "params": list(PS.param_spec_tree(params, rules).values()),
+                "cache": [s for layer in PS.cache_shardings(cache, rules)
+                          for s in layer.values()],
+                "batch": [s for sh in SHAPES.values() for s in
+                          PS.batch_shardings(Model(pcfg, p, model.device),
+                                             sh, rules).values()]}
+            counts = {k: len(v) for k, v in specs.items()}
+            split = {k: sum(n_shards(s, dm) > 1 for s in v)
+                     for k, v in specs.items()}
+            if any(split.values()) or not all(counts.values()):
+                raise RuntimeError(f"plans: {name} specs not all replicated "
+                                   f"on (1, 1): {split} of {counts}")
+            out["specs"][name] = counts
+            log(f"[plans] {name} plan {plan_tag(p)} on (1, 1): {counts} "
+                f"specs (params, cache, batch), all replicated")
+
+        rung = MeasuredBackend(device=model.device, source=source,
+                               params={cfg.name: params}, mesh=dm, log=log)
+        try:
+            rung.measure(MeasureContext(cfg, PLANS_SHAPE, n_chips=256,
+                                        tp=16), cfg.plan)
+        except ValueError as e:
+            out["refusal"] = str(e)
+            log(f"[plans] a 256-chip, 16-way TP context on the (1, 1) mesh: "
+                f"refused ({e})")
+        else:
+            raise RuntimeError("plans: the measured rung ran a 256-chip "
+                               "context on a one-card mesh")
+        for name in ("arch", "decode"):
+            p = plans[name]
+            m = rung.measure(MeasureContext(cfg, PLANS_SHAPE), p)
+            what = (f"[plans] {name} plan {plan_tag(p)} ({p.attn_impl} "
+                    f"attention, {p.mlp_impl} mlp, {p.kv_cache_dtype} cache) "
+                    f"at {PLANS_SHAPE}")
+            if not m.ok:
+                raise RuntimeError(f"{what}: PENALTY {m.error}")
+            check_window(what, m.trace.meta["counter"])
+            out["trials"][name] = {
+                "plan": plan_tag(p), "kv_cache_dtype": p.kv_cache_dtype,
+                "seconds": m.seconds, "watts": m.watts, "ws": m.energy_j,
+                "calls": m.trace.meta["calls"],
+                "peak_gb": m.peak_mem_per_chip / 1e9}
+            log(f"{what}: {m.seconds:.4f} s, {m.watts:.2f} W, "
+                f"{m.energy_j:.3f} Ws a call of 16 decode steps (card-only), "
+                f"{m.trace.meta['calls']} calls, peak "
+                f"{m.peak_mem_per_chip / 1e9:.2f} GB")
+        a = rung.outputs[plan_tag(plans["arch"])]
+        b = rung.outputs[plan_tag(plans["decode"])]
+        tol = PREFILL_TOL[cfg.name] * float(a.abs().max())
+        out["logits_max_abs_err"] = check(
+            "plans: the int8-cache plan's last logits vs the arch plan's",
+            b, a, tol, 0.0)
+        log(f"[plans] last logits, int8 cache vs bf16 cache: max_err "
+            f"{out['logits_max_abs_err']:.4f}, tol {tol:.4f} = "
+            f"{PREFILL_TOL[cfg.name]} max|logit|")
+        del rung
+    if dist.is_initialized():
+        raise RuntimeError("plans: the host mesh's group outlived it")
+    out["wall_s"] = time.perf_counter() - t0
+    log(f"[plans] phase: {out['wall_s']:.1f} s")
+    log("plans " + json.dumps(out))
+    return out
 
 
 #: the fleet-scale phase: the reference's fleet_scale and fleet_diurnal_1m
@@ -2887,6 +3030,13 @@ def main() -> int:
                               counters)
             for name, n in fleet.items():
                 launches[name] += n
+            # the sharding plan as a path of its own: its two plans run
+            # stock ops only, so its counts stay 0
+            for k in counters.values():
+                k.launches = 0
+            phase_plans(path["model"], path["params"], source)
+            log("kernels plans " + json.dumps(
+                {name: k.launches for name, k in counters.items()}))
             profile_serve(path["model"], path["params"], path["wall_s"])
         if arch == "mamba2-1.3b":
             profile_prefill(path["model"], path["params"], path["prefill_s"])

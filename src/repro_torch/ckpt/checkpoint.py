@@ -15,7 +15,7 @@ stands for its ``state_dict``.  Keys are the port's names joined by "/"
 
 ``restore(..., device=)`` places each leaf on the restoring job's device.
 The reference's elastic re-sharding onto another mesh comes with the
-sharding slice.  ``AsyncSaver`` copies the tree to the host when ``save``
+train step's collectives (ROADMAP.md §A item 1).  ``AsyncSaver`` copies the tree to the host when ``save``
 is called (a copy, also of CPU tensors, so a later in-place update cannot
 reach the file) and writes it in a worker thread off the critical path.
 """

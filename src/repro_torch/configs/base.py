@@ -2,10 +2,15 @@
 
 Every assigned architecture is an ``ArchConfig``; every workload shape is a
 ``ShapeSpec``.  The *execution plan* (``PlanConfig``) holds the knobs of the
-paper's offload search that the port reads: per-site destinations, the
-chunk size of chunked attention, the train step's remat policy,
-microbatching, gradient reduction and compression, and the dtypes.  The
-reference's sharding knobs come with the sharding slice (ROADMAP.md).
+paper's offload search: per-site destinations, the sharding genes (FSDP,
+sequence parallelism, expert parallelism, tensor parallelism, collective
+overlap), the chunk size of chunked attention, the train step's remat
+policy, microbatching, gradient reduction and compression, and the dtypes,
+in the reference's field order with its defaults.  Two reference fields
+have no counterpart: ``moe_impl`` (one allele) and ``scan_layers`` (a
+``lax.scan`` over stacked layers; the port walks its layers in a loop).
+The sharding genes take effect through ``repro_torch.parallel`` on a
+``DeviceMesh`` and in ``core.intensity.estimate_program``.
 
 The port reads the destination strings as: ``xla`` -> stock PyTorch ops,
 ``xla_chunked`` -> the chunked online-softmax PyTorch path, ``pallas`` ->
@@ -34,7 +39,7 @@ class PlanConfig:
     """One concrete execution plan (a decoded genome).
 
     Per-site destinations mirror the paper's per-loop offload bits; the
-    train genes are the reference's, with its defaults.
+    sharding and train genes are the reference's, with its defaults.
     """
 
     # --- per-site destinations ("which loop goes to which device") ---------
@@ -42,11 +47,20 @@ class PlanConfig:
     mlp_impl: str = "xla"               # xla | pallas  (fused swiglu)
     ssm_impl: str = "xla"               # xla | pallas  (SSD chunked kernel)
     rglru_impl: str = "xla"             # xla | pallas  (RG-LRU scan kernel)
-    attn_chunk: int = 1024              # kv-block size for chunked attention
 
-    # --- memory / schedule genes (the train step) ---------------------------
+    # --- sharding / distribution genes --------------------------------------
+    fsdp: bool = True                   # shard weights over the data axis too
+    seq_shard: bool = True              # sequence-parallel residual stream
+    shard_moe_experts: bool = True      # expert parallelism over 'model'
+    use_tp: bool = True                 # False: model axis joins DP (pure
+                                        # data parallel + ZeRO; small archs)
+    overlap_collectives: bool = False   # async collectives hidden under
+                                        # compute (modeled 50% overlap)
+
+    # --- memory / schedule genes --------------------------------------------
     remat: str = "full"                 # none | dots | full
     microbatches: int = 1               # gradient-accumulation steps
+    attn_chunk: int = 1024              # kv-block size for chunked attention
 
     # --- transfer-batching analogue (paper §3.1) -----------------------------
     fused_grad_reduce: bool = True      # single fused reduction vs per-layer
@@ -74,6 +88,11 @@ class PlanConfig:
         if self.grad_compress not in GRAD_COMPRESS:
             raise ValueError(f"grad_compress {self.grad_compress!r} not in "
                              f"{GRAD_COMPRESS}")
+        for name in ("fsdp", "seq_shard", "shard_moe_experts", "use_tp",
+                     "overlap_collectives"):
+            if not isinstance(getattr(self, name), bool):
+                raise ValueError(f"{name} {getattr(self, name)!r} is not a "
+                                 f"bool")
         if self.microbatches < 1:
             raise ValueError(f"microbatches {self.microbatches} < 1")
 

@@ -22,7 +22,8 @@ FULL = ArchConfig(
     vocab_size=128256,
     rope_theta=500_000.0,
     optimizer="adafactor",
-    plan=PlanConfig(remat="full", microbatches=16, attn_chunk=512,
+    plan=PlanConfig(remat="full", microbatches=16, seq_shard=True,
+                    fsdp=True, attn_chunk=512,
                     param_dtype="bfloat16", accum_dtype="bfloat16"),
     skip_shapes=dict(FULL_ATTENTION_SKIPS),
 )

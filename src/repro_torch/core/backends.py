@@ -12,12 +12,11 @@ cost:
     ``synthesize_phase_trace``: milliseconds per pattern, the GA inner
     loop's rung.
   * ``measured`` — one real trial on the card: the plan's model runs the
-    shape's prefill, decode or train step, timed on the wall clock, its
-    energy read
-    from the card's NVML counter through the sampler.  This is the paper's
-    own verification step, and takes the place of the reference's
-    compiled rung (a 512-device dry-run, which comes with the sharding
-    slice).
+    shape's prefill, decode or train step on the mesh the rung is given,
+    timed on the wall clock, its energy read from the card's NVML counter
+    through the sampler.  This is the paper's own verification step, and
+    takes the place of the reference's compiled rung (a 512-device
+    dry-run, ROADMAP.md §A item 2).
   * ``replay`` — re-read a trace a measured trial persisted (JSONL), for
     offline analysis on machines without the card.
 
@@ -228,7 +227,9 @@ class AnalyticBackend:
             return penalty_measurement(f"{type(e).__name__}: {e}", ctx.power)
         return _roofline_measurement(
             ctx, est.flops, est.hbm_bytes, est.coll_bytes,
-            est.peak_mem_per_chip, self.name, coll_ops=est.coll_ops)
+            est.peak_mem_per_chip, self.name,
+            overlap=0.5 if plan.overlap_collectives else None,
+            coll_ops=est.coll_ops)
 
 
 # ---------------------------------------------------------------------------
@@ -239,10 +240,34 @@ class TrialTimeout(Exception):
     """A trial ran past the paper's verification timeout."""
 
 
+def check_context_fits(ctx: MeasureContext, mesh) -> None:
+    """Raise when the context asks for more chips, or a wider model axis,
+    than ``mesh`` holds (no mesh: one card, (1, 1)): a trial on fewer
+    devices is another trial, never a measurement of the larger one."""
+    n, tp = 1, 1
+    if mesh is not None:
+        n = mesh.size()
+        tp = dict(zip(mesh.mesh_dim_names, tuple(mesh.shape))).get("model", 1)
+    if ctx.n_chips > n or ctx.tp > tp:
+        raise ValueError(
+            f"{ctx.cfg.name} {ctx.shape_name}: the context asks for "
+            f"{ctx.n_chips} chips with a {ctx.tp}-way model axis; the "
+            f"measured rung's mesh holds {n} devices with a {tp}-way model "
+            f"axis")
+
+
 @register_backend
 @dataclass
 class MeasuredBackend:
     """One real trial of the plan on the card, sampled on the wall clock.
+
+    The plan runs on ``mesh`` (a ``DeviceMesh``; ``None`` is one card, the
+    same computation as ``launch.mesh.make_host_mesh()``'s ``(1, 1)``
+    mesh, where every rule resolves to replicated): prefill and decode
+    under ``parallel.sharding.make_rules`` for it.  A context whose
+    ``n_chips`` or ``tp`` exceeds the mesh raises (``check_context_fits``).
+    The train step's sharding comes with its collectives (ROADMAP.md §A
+    item 1).
 
     The plan's ``Model`` runs the shape's kind: prefill runs
     ``Model.prefill`` on the shape's batch; decode runs ``decode_steps``
@@ -290,6 +315,7 @@ class MeasuredBackend:
     #: plan tag -> the last position's logits of its last trial call (a
     #: train trial's: the loss of its last step)
     outputs: dict = field(default_factory=dict)
+    mesh: Optional[object] = None       # DeviceMesh; None: one card
 
     def weights(self, model):
         """The arch's parameters: loaded or made once from ``seed``."""
@@ -306,7 +332,7 @@ class MeasuredBackend:
         return self.source
 
     def _trial(self, model, params, shape: ShapeSpec,
-               dev: torch.device) -> Callable[[], torch.Tensor]:
+               dev: torch.device, rules=None) -> Callable[[], torch.Tensor]:
         """One call of the shape's kind, waiting for the device; it
         returns a copy of the last position's logits (the model's are a
         view that would keep all positions' logits alive)."""
@@ -315,6 +341,7 @@ class MeasuredBackend:
         sync = (lambda: torch.cuda.synchronize(dev)) \
             if dev.type == "cuda" else (lambda: None)
         b, s = shape.global_batch, shape.seq_len
+        kw = {} if rules is None else {"rules": rules}
         if shape.kind == "train":
             return self._train_trial(model, shape, dev, rng, sync)
         cache = model.init_cache(b, s)
@@ -323,7 +350,8 @@ class MeasuredBackend:
                 0, cfg.vocab_size, (b, s)).astype(np.int32)).to(dev)
 
             def call() -> torch.Tensor:
-                logits, _ = model.prefill(params, {"tokens": toks}, cache)
+                logits, _ = model.prefill(params, {"tokens": toks}, cache,
+                                          **kw)
                 logits = logits.clone()
                 sync()
                 return logits
@@ -341,7 +369,7 @@ class MeasuredBackend:
             for i in range(n):
                 logits, _ = model.decode_step(
                     params, {"tokens": toks[:, i:i + 1], "pos": s0 + i},
-                    cache)
+                    cache, **kw)
             logits = logits.clone()
             sync()
             return logits
@@ -374,10 +402,14 @@ class MeasuredBackend:
     def measure(self, ctx: MeasureContext,
                 plan: PlanConfig) -> Measurement:
         from repro_torch.models.model import Model
+        from repro_torch.parallel.sharding import make_rules
+        check_context_fits(ctx, self.mesh)
         dev = resolve_device(self.device)
         shape = ctx.shape
         cfg = dataclasses.replace(ctx.cfg, plan=plan)
         model = Model(cfg, plan, dev)
+        rules = None if self.mesh is None else make_rules(cfg, self.mesh,
+                                                          plan)
         # a train trial makes its own weights (_train_trial)
         params = self.weights(model) if shape.kind != "train" else None
         source = self.power_source(dev)
@@ -400,7 +432,7 @@ class MeasuredBackend:
         def call() -> None:
             last[:] = [trial()]
         try:
-            trial = self._trial(model, params, shape, dev)
+            trial = self._trial(model, params, shape, dev, rules)
             call()                                  # warm-up
             check(0.0)
             win = sample_window(source, call, seconds=self.window_s,
@@ -478,19 +510,28 @@ def plan_kernels(plan: PlanConfig, genes) -> list[str]:
 
 def _fill_cache(cache: list, filled: int, gen: torch.Generator) -> None:
     """Seeded random values in every cache tensor; an attention cache's
-    first ``filled`` positions marked as held."""
+    first ``filled`` positions marked as held.  Keys and values are f32
+    normals stored as the cache stores a new entry (cast, or quantised
+    with per-(pos, head) scales in an int8 cache), so caches of two KV
+    dtypes hold the same values up to the storage rounding."""
+    from repro_torch.models.layers import _kv_quant
     for layer in cache:
         for key, t in layer.items():
             if key == "kpos":
                 t.fill_(-1)
                 n = min(filled, t.shape[0])
                 t[:n] = torch.arange(n, dtype=t.dtype, device=t.device)
-            elif t.dtype == torch.int8:
-                t.copy_(torch.randint(-127, 128, t.shape, generator=gen,
-                                      device=t.device, dtype=torch.int8))
-            elif key.endswith("_scale"):
-                t.uniform_(0.0, 0.02, generator=gen)
-            else:
+            elif key in ("k", "v") and "kpos" in layer:
+                x = torch.empty(t.shape, dtype=torch.float32,
+                                device=t.device).normal_(generator=gen)
+                if t.dtype == torch.int8:
+                    q, scale = _kv_quant(x)
+                    t.copy_(q)
+                    layer[f"{key}_scale"].copy_(scale)
+                else:
+                    t.copy_(x)
+                del x
+            elif not key.endswith("_scale"):
                 t.normal_(generator=gen)
 
 

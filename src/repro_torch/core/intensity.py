@@ -1,11 +1,16 @@
 """Arithmetic-intensity analysis + loop census + analytic program estimator.
 
-Counterpart of ``repro.core.intensity``: ``site_census`` is copied op for
-op; ``estimate_program`` for train, prefill and decode, on the port's
-plans, which have no tensor parallelism (``tp = 1``) and no FSDP (the
-reference with ``use_tp=False, fsdp=False``).  ``SiteStats.vmem_working_set`` keeps the
-reference's figure (the twin tests hold the census equal); the card's
-resource pre-check in ``core.narrowing`` asks the kernels instead.
+Counterpart of ``repro.core.intensity``: ``site_census`` and
+``estimate_program`` are copied op for op, the latter with the TP
+activation reductions, the FSDP gathers, the DP gradient reduction, the
+seq-sharded KV all-gather and the per-chip memory.  Its ``tp`` defaults to
+1, one card's model axis, where the reference's defaults to its pod's 16.
+At one chip the train branch still charges the FSDP gathers of a plan
+with ``fsdp=True`` (there is no data axis to gather over): the reference's
+own term, kept so the twins stay equal (ROADMAP.md §C, C6).
+``SiteStats.vmem_working_set`` keeps the reference's figure (the twin tests
+hold the census equal); the card's resource pre-check in
+``core.narrowing`` asks the kernels instead.
 
 The paper narrows FPGA offload candidates with (a) arithmetic-intensity
 analysis (ROSE), (b) loop counts (gcov/gprof) and (c) resource pre-compiles.
@@ -159,12 +164,9 @@ class Estimate:
 
 def estimate_program(cfg: ArchConfig, shape: ShapeSpec, plan: PlanConfig,
                      n_chips: int, tp: int = 1) -> Estimate:
-    """Analytic forward(+backward) roofline inputs for one step.
-
-    ``tp`` is kept for the reference's signature; the port's plans carry
-    no tensor parallelism and no FSDP, so it is 1 whatever is passed and
-    the FSDP gathers are 0 (the reference with ``use_tp=False,
-    fsdp=False``)."""
+    """Analytic forward(+backward) roofline inputs for one step, on
+    ``n_chips`` chips with a ``tp``-way model axis (``tp`` counts only
+    under ``plan.use_tp``).  The default is one card's: ``tp = 1``."""
     sites = site_census(cfg, shape, plan)
     fwd_flops = sum(s.flops for s in sites)
     fwd_hbm = sum(s.hbm_bytes for s in sites)
@@ -173,7 +175,7 @@ def estimate_program(cfg: ArchConfig, shape: ShapeSpec, plan: PlanConfig,
     n_params = cfg.param_count()
     n_active = cfg.active_param_count()
     d = cfg.d_model
-    tp = 1
+    tp = tp if plan.use_tp else 1
     dp = max(n_chips // tp, 1)
 
     est = Estimate()
@@ -186,13 +188,28 @@ def estimate_program(cfg: ArchConfig, shape: ShapeSpec, plan: PlanConfig,
         grad_traffic = n_params * _dt_bytes(plan.accum_dtype) * 2 \
             * plan.microbatches
         est.hbm_bytes = fwd_hbm * remat_mult + opt_traffic + grad_traffic
-        # collectives (per chip): the DP gradient reduction only (no TP
-        # activation reductions, no FSDP gathers)
+        # collectives (per chip): TP activation reductions + FSDP gathers +
+        # DP gradient reduction
         t_tok = shape.tokens
+        tp_coll = 0.0
+        if plan.use_tp and tp > 1:
+            tp_coll = 2.0 * (t_tok / dp) * d * cdt * cfg.n_layers \
+                * (2 if plan.remat != "none" else 1)
+        fsdp_coll = 0.0
+        if plan.fsdp:
+            fsdp_coll = (n_active / tp) * cdt * (2 if plan.remat == "full"
+                                                 else 1)
         gdt = 1 if plan.grad_compress == "int8_ef" else \
             _dt_bytes(plan.accum_dtype)
-        est.coll_bytes = 2.0 * (n_active / tp) * gdt * (1.0 - 1.0 / dp)
-        est.coll_ops = 2 if plan.fused_grad_reduce else 2 * cfg.n_layers
+        dp_coll = 2.0 * (n_active / tp) * gdt * (1.0 - 1.0 / dp)
+        est.coll_bytes = tp_coll + fsdp_coll + dp_coll
+        passes = 2 if plan.remat == "none" else 3
+        per_layer = (2 if (plan.use_tp and tp > 1) else 0) \
+            + (2 if plan.fsdp else 0)
+        est.coll_ops = (cfg.n_layers * per_layer * passes
+                        * max(plan.microbatches, 1)
+                        + (2 if plan.fused_grad_reduce else
+                           2 * cfg.n_layers))
         # memory: params + opt + grads + stash
         stash = (t_tok / n_chips) * d * cdt * cfg.n_layers \
             / max(plan.microbatches, 1)
@@ -209,22 +226,27 @@ def estimate_program(cfg: ArchConfig, shape: ShapeSpec, plan: PlanConfig,
                                  * _dt_bytes(plan.accum_dtype) / n_chips
                                  + opt_mem + stash
                                  + 2 * n_params * cdt / (cfg.n_layers * tp))
-        return est
-
-    est.flops = fwd_flops
-    est.hbm_bytes = fwd_hbm
-    t_tok = shape.global_batch if shape.kind == "decode" else shape.tokens
-    est.coll_bytes = 0.0
-    kv = 0.0
-    if cfg.n_heads:
-        window = cfg.local_window if cfg.family == "hybrid" else 0
-        eff = min(window, shape.seq_len) if window else shape.seq_len
-        n_attn = sum(1 for k in cfg.layer_kinds() if k == "attn")
-        kv = (shape.global_batch * eff * 2 * cfg.n_kv_heads * cfg.d_head
-              * _dt_bytes(plan.kv_cache_dtype) * n_attn)
-    est.coll_ops = 0
-    est.hbm_bytes += kv                                # cache traffic
-    est.peak_mem_per_chip = (n_params * pdt / min(n_chips, tp * dp)
-                             + kv / n_chips
-                             + (t_tok / n_chips) * d * cdt * 4)
+    else:
+        est.flops = fwd_flops
+        est.hbm_bytes = fwd_hbm
+        t_tok = shape.global_batch if shape.kind == "decode" else shape.tokens
+        tp_coll = 0.0
+        if plan.use_tp and tp > 1:
+            tp_coll = 2.0 * (t_tok / dp) * d * cdt * cfg.n_layers
+        est.coll_bytes = tp_coll
+        kv = 0.0
+        if cfg.n_heads:
+            window = cfg.local_window if cfg.family == "hybrid" else 0
+            eff = min(window, shape.seq_len) if window else shape.seq_len
+            n_attn = sum(1 for k in cfg.layer_kinds() if k == "attn")
+            kv = (shape.global_batch * eff * 2 * cfg.n_kv_heads * cfg.d_head
+                  * _dt_bytes(plan.kv_cache_dtype) * n_attn)
+            if plan.use_tp and tp > 1 and cfg.n_kv_heads % tp != 0:
+                # seq-sharded KV cache is all-gathered across TP per layer
+                est.coll_bytes += kv / n_chips
+        est.coll_ops = cfg.n_layers * (2 if (plan.use_tp and tp > 1) else 0)
+        est.hbm_bytes += kv                                # cache traffic
+        est.peak_mem_per_chip = (n_params * pdt / min(n_chips, tp * dp)
+                                 + kv / n_chips
+                                 + (t_tok / n_chips) * d * cdt * 4)
     return est

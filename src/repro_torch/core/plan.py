@@ -1,16 +1,20 @@
 """Execution-plan genome — the paper's per-loop offload bits, lifted to plans.
 
-Counterpart of ``repro.core.plan``.  ``GENES`` keeps the reference's genes
-that the port's ``PlanConfig`` has (the four site destinations, the chunk
-of chunked attention, the KV cache dtype and the four train genes), with
-the same alleles and applicability predicates.  The sharding genes
-(``fsdp``, ``seq_shard``, ``use_tp``, ``overlap_collectives``) come with
-the sharding slice (ROADMAP.md §A item 4).
+Counterpart of ``repro.core.plan``.  ``GENES`` is the reference's, in its
+order (the GA draws genes in this order): the four site destinations, the
+four sharding genes (``fsdp``, ``seq_shard``, ``use_tp``,
+``overlap_collectives``), the train genes, the chunk of chunked attention
+and the KV cache dtype, with the same alleles and applicability
+predicates.  On one card (``tp = 1``, one data replica) the sharding genes
+change no computation; on the analytic rung they move only the train
+branch's collectives (``fsdp``'s gathers, ROADMAP.md §C C6, and the
+overlap that hides them), so at prefill and decode the GA sees ties among
+them, as the reference does at one chip.
 
 The paper geneticizes one bit per parallelizable loop (1 = offload to GPU,
-0 = CPU).  Here the decision space is the execution plan of a model on the
-card; each gene is a site destination or a knob of a site.  Genes are small
-categorical alphabets, so the GA operators work per-gene.
+0 = CPU).  Here the decision space is the execution plan of a model on a
+mesh of cards; each gene is a site destination or a distribution knob.
+Genes are small categorical alphabets, so the GA operators work per-gene.
 
 Gene applicability is arch-dependent: an attention-free arch (mamba2) simply
 has no attention genes (the technique applies, the sites differ).
@@ -34,6 +38,10 @@ GENES: dict[str, tuple[tuple, Any]] = {
     "ssm_impl": (("xla", "pallas"), lambda cfg, kind: cfg.family == "ssm"),
     "rglru_impl": (("xla", "pallas"),
                    lambda cfg, kind: cfg.family == "hybrid"),
+    "fsdp": ((False, True), lambda cfg, kind: True),
+    "seq_shard": ((False, True), lambda cfg, kind: True),
+    "use_tp": ((False, True), lambda cfg, kind: True),
+    "overlap_collectives": ((False, True), lambda cfg, kind: True),
     "remat": (("none", "dots", "full"), lambda cfg, kind: kind == "train"),
     "microbatches": ((1, 2, 4, 8, 16), lambda cfg, kind: kind == "train"),
     "attn_chunk": ((256, 512, 1024, 2048),

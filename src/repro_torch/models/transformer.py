@@ -13,6 +13,13 @@ the reference reads its dicts, and ``repro_torch.convert`` maps the pytree
 onto ``state_dict`` keys one to one.  ``embed_inputs`` is the reference's
 front end: token embeddings, audio frames through ``frontend``, or vision
 patch embeddings over the first ``n_patches`` positions.
+
+``rules`` (``parallel.sharding.ShardingRules``, optional) constrains the
+residual stream after the embedding and after every layer to (batch,
+seq_sharded, act_embed), and the logits to (batch, -, vocab), at the
+reference's four points.  A plain tensor lies on no mesh and passes
+through unchanged, so on one card, or with ``rules=None``, every output is
+what it is without them.
 """
 from __future__ import annotations
 
@@ -26,6 +33,7 @@ from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
+from repro_torch.parallel.sharding import constrain
 
 # init rules: ("normal", scale) | ("zeros",) | ("ones",) | ("lru_lambda",)
 
@@ -216,14 +224,17 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
 
 
 def apply_layer(p: Layer, x, cfg: ArchConfig, plan: PlanConfig, positions,
-                cache, decode: bool):
+                cache, decode: bool, rules=None):
     """One layer: returns (x, cache, aux), aux the MoE layer's load-balance
     loss (0 elsewhere), as the reference's ``apply_layer``."""
     aux = x.new_zeros((), dtype=torch.float32)
     h = L.apply_norm(p.norm1, x, cfg)
     if p.kind == "ssm":
         mix, cache = S.run_mamba2(p.mixer, h, cfg, plan, cache, decode)
-        return x + mix, cache, aux
+        x = x + mix
+        if rules is not None:
+            x = constrain(x, rules, "batch", "seq_sharded", "act_embed")
+        return x, cache, aux
     if p.kind == "rec":
         mix, cache = R.run_rglru_block(p.mixer, h, cfg, plan, cache, decode)
     else:
@@ -235,7 +246,10 @@ def apply_layer(p: Layer, x, cfg: ArchConfig, plan: PlanConfig, positions,
         ff, aux = L.run_moe(p.moe, h, cfg, plan)
     else:
         ff = L.run_mlp(p.mlp, h, cfg, plan)
-    return x + ff, cache, aux
+    x = x + ff
+    if rules is not None:
+        x = constrain(x, rules, "batch", "seq_sharded", "act_embed")
+    return x, cache, aux
 
 
 def unit_structure(cfg: ArchConfig) -> tuple[int, int]:
@@ -281,11 +295,15 @@ def _remat(fn, plan: PlanConfig, grad: bool):
 
 
 def embed_inputs(params: Transformer, batch: dict, cfg: ArchConfig,
-                 plan: PlanConfig):
+                 plan: PlanConfig, rules=None):
     """(B,S,d) inputs in the compute dtype: ``batch["features"] @
     frontend`` for audio frames; else the tokens' embeddings, whose first
     ``n_patches`` positions ``batch["patch_embeds"]`` (B,n_patches,d)
-    overwrites when given (vision)."""
+    overwrites when given (vision).  Under ``rules`` the reference takes
+    the embeddings as a one-hot product, which keeps a vocab-sharded table
+    sharded; its numbers are the gather's, which the port's tables (plain
+    tensors) keep."""
+    del rules
     dt = L.cdtype(plan)
     if cfg.frontend == "audio_frames":
         return batch["features"].to(dt) @ params.frontend.to(dt)
@@ -304,7 +322,7 @@ def embed_inputs(params: Transformer, batch: dict, cfg: ArchConfig,
 
 def forward(params: Transformer, batch: dict, cfg: ArchConfig,
             plan: PlanConfig, cache: Optional[list] = None,
-            decode: bool = False):
+            decode: bool = False, rules=None):
     """Returns (logits, cache, aux), aux the summed MoE load-balance loss
     (f32, 0 without MoE layers).
 
@@ -317,15 +335,18 @@ def forward(params: Transformer, batch: dict, cfg: ArchConfig,
     ``batch["patch_embeds"]``, see ``embed_inputs``); in decode
     ``batch["pos"]`` (an int or a 0-d tensor) is the position of the whole
     batch.  Under autograd each unit of ``unit_structure`` runs under the
-    plan's ``remat`` (the tail does not, as in the reference).
+    plan's ``remat`` (the tail does not, as in the reference).  ``rules``
+    constrains the residual stream and the logits (module docstring).
     """
-    h = embed_inputs(params, batch, cfg, plan)
+    h = embed_inputs(params, batch, cfg, plan, rules)
     if decode:
         positions = torch.as_tensor(batch["pos"], dtype=torch.int32,
                                     device=h.device).reshape(1)
     else:
         positions = torch.arange(h.shape[1], dtype=torch.int32,
                                  device=h.device)
+    if rules is not None:
+        h = constrain(h, rules, "batch", "seq_sharded", "act_embed")
     aux = h.new_zeros((), dtype=torch.float32)
     size, n_full = unit_structure(cfg)
     layers = list(params.layers)
@@ -334,7 +355,7 @@ def forward(params: Transformer, batch: dict, cfg: ArchConfig,
         for i in range(i0, i0 + size):
             h, _, a = apply_layer(layers[i], h, cfg, plan, positions,
                                   cache[i] if cache is not None else None,
-                                  decode)
+                                  decode, rules)
             aux = aux + a
         return h, aux
 
@@ -344,9 +365,12 @@ def forward(params: Transformer, batch: dict, cfg: ArchConfig,
     for i in range(n_full * size, len(layers)):
         h, _, a = apply_layer(layers[i], h, cfg, plan, positions,
                               cache[i] if cache is not None else None,
-                              decode)
+                              decode, rules)
         aux = aux + a
     h = L.apply_norm(params.final_norm, h, cfg)
     wout = params.embed.T if cfg.tie_embeddings else params.lm_head
     logits = torch.einsum("bsd,dv->bsv", h, wout.to(h.dtype))
+    if rules is not None:
+        # vocab gets the model axis (loss reductions stay sharded)
+        logits = constrain(logits, rules, "batch", None, "vocab")
     return logits, cache, aux

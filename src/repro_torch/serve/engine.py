@@ -42,15 +42,18 @@ from repro_torch.telemetry.energy import (IDLE_PHASE, INFRA_TENANT,
                                           DecodeEnergyMeter)
 
 
-def make_prefill(model: Model):
+def make_prefill(model: Model, rules=None):
+    """``prefill(params, batch, cache)`` under ``rules``
+    (``parallel.sharding.ShardingRules``, optional)."""
     def prefill(params, batch, cache):
-        return model.prefill(params, batch, cache)
+        return model.prefill(params, batch, cache, rules)
     return prefill
 
 
-def make_decode_step(model: Model):
+def make_decode_step(model: Model, rules=None):
+    """``decode_step(params, batch, cache)`` under ``rules`` (optional)."""
     def decode_step(params, batch, cache):
-        return model.decode_step(params, batch, cache)
+        return model.decode_step(params, batch, cache, rules)
     return decode_step
 
 

@@ -8,7 +8,7 @@ optimizers it works on leaf dicts (reference leaf path -> the port's
 tensors; see ``train.optimizer``), so each stacked leaf gets one scale and
 one error buffer, as in the reference.  The reference's
 ``compressed_psum`` is a collective under ``shard_map`` and comes with the
-sharding slice (ROADMAP.md §A item 4).
+train step's collectives (ROADMAP.md §A item 1).
 """
 from __future__ import annotations
 

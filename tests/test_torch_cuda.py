@@ -868,3 +868,51 @@ def test_planner_torch_backend_on_the_card(cuda):
     want = planner.forecaster.expected_queue_depth_many(
         slots, 16.0, now=5, horizon=64.0)
     np.testing.assert_allclose(got, want, rtol=1e-9, atol=1e-12)
+
+
+# ---------------------------------------------------------------------------
+# The sharding plan on the card: the one-card mesh and the measured rung
+# ---------------------------------------------------------------------------
+
+
+def test_host_mesh_on_the_card_is_one_by_one_and_torn_down(cuda):
+    """``make_host_mesh()`` builds ``(1, 1)`` over its own one-rank NCCL
+    group; every rule resolves to replicated there; the group goes with
+    ``destroy_host_mesh``."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import destroy_host_mesh, make_host_mesh
+    from repro_torch.parallel import param_sharding as PS
+    from repro_torch.parallel.sharding import make_rules, n_shards
+    assert not dist.is_initialized()
+    try:
+        dm = make_host_mesh()
+        assert (tuple(dm.shape), dm.mesh_dim_names, dm.device_type) == \
+            ((1, 1), ("data", "model"), "cuda")
+        assert dist.get_backend() == "nccl" and dist.get_world_size() == 1
+        cfg = get_config("qwen2-7b", reduced=True)
+        params = Model(cfg, device=cuda).init(
+            torch.Generator(device=cuda).manual_seed(0))
+        rules = make_rules(cfg, dm, cfg.plan)
+        specs = PS.param_spec_tree(params, rules)
+        assert specs and all(n_shards(s, dm) == 1 for s in specs.values())
+    finally:
+        destroy_host_mesh()
+    assert not dist.is_initialized()
+
+
+def test_measured_rung_refuses_a_context_larger_than_its_mesh(cuda,
+                                                              monkeypatch):
+    from repro_torch.configs import CARD_SHAPES, ShapeSpec
+    from repro_torch.core.backends import MeasureContext, MeasuredBackend
+    from repro_torch.launch.mesh import host_mesh
+    monkeypatch.setitem(CARD_SHAPES, "card_test",
+                        ShapeSpec("card_test", 256, 2, "decode"))
+    cfg = get_config("qwen2-7b", reduced=True)
+    with host_mesh() as dm:
+        rung = MeasuredBackend(device=cuda, mesh=dm, decode_steps=4)
+        with pytest.raises(ValueError, match="mesh holds 1 devices"):
+            rung.measure(MeasureContext(cfg, "card_test", n_chips=256,
+                                        tp=16), cfg.plan)
+        assert not rung.outputs
+        m = rung.measure(MeasureContext(cfg, "card_test"), cfg.plan)
+        assert m.ok and m.seconds > 0

@@ -1,10 +1,10 @@
 """The port's offload search against the JAX package's ``repro.core``.
 
-``fitness``, ``site_census``, ``estimate_program`` (prefill and decode, the
-reference with ``use_tp=False``), ``PowerModel`` and the analytic rung are
-copied op for op: held equal at rel 1e-12 under one ``HardwareSpec`` built
-here with the same numbers in both packages (so the port carries no TPU
-constant).  Narrowing is held equal with the reference's VMEM pre-check
+``fitness``, ``site_census``, ``estimate_program``, ``PowerModel`` and the
+analytic rung are copied op for op: held equal at rel 1e-12 under one
+``HardwareSpec`` built here with the same numbers in both packages (so the
+port carries no TPU constant), on the same plans (every shared field
+equal) at the port's one-card ``tp = 1``.  Narrowing is held equal with the reference's VMEM pre-check
 injected in place of the card's shared-memory one.  The GA, the verifier
 and the destination ladder are held to the reference's properties
 (``tests/test_core_offload.py``, ``tests/test_backends.py``): the GA's
@@ -55,12 +55,22 @@ SPEC = dict(name="test_chip", peak_flops=500e12, hbm_bw=2.0e12,
             e_ici=2e-11, p_static=90.0)
 
 
+#: the reference's plan fields the port leaves out
+REF_ONLY_FIELDS = ("moe_impl", "scan_layers")
+
+
 def _ref_plan(cfg, **kw):
-    """The reference's plan with the genes the port lacks at the values the
-    port's plans imply: no tensor parallelism, no overlap (and, in ``kw``,
-    e.g. no FSDP)."""
-    return dataclasses.replace(cfg.plan, use_tp=False,
-                               overlap_collectives=False, **kw)
+    """The reference's plan with ``kw`` moved.  The port's plans carry
+    every shared field, so a port plan and this one are compared whole
+    (``_same_fields``)."""
+    return dataclasses.replace(cfg.plan, **kw)
+
+
+def _same_fields(p, jp):
+    """Every field the two plans share is equal."""
+    ref = {k: v for k, v in dataclasses.asdict(jp).items()
+           if k not in REF_ONLY_FIELDS}
+    assert dataclasses.asdict(p) == ref
 
 
 def _close(a, b):
@@ -85,11 +95,9 @@ def test_fitness_equals_the_reference(seconds, watts, alpha, beta):
 
 
 def test_genes_are_a_subset_of_the_reference_with_identical_alleles():
-    assert set(plan.GENES) <= set(j_plan.GENES)
-    assert set(plan.GENES) == {"attn_impl", "mlp_impl", "ssm_impl",
-                               "rglru_impl", "attn_chunk", "kv_cache_dtype",
-                               "remat", "microbatches", "fused_grad_reduce",
-                               "grad_compress"}
+    """The two ``GENES`` are equal, in order (the GA draws in this
+    order), with identical alleles."""
+    assert list(plan.GENES) == list(j_plan.GENES)
     for g, (alleles, _) in plan.GENES.items():
         assert alleles == j_plan.GENES[g][0]
         assert getattr(get_config("qwen2-7b").plan, g) is not None
@@ -235,6 +243,7 @@ def test_site_census_equals_the_reference(arch, shape):
                                     attn_chunk=256),
                    dataclasses.replace(_ref_plan(jcfg), attn_impl="xla",
                                        mlp_impl="pallas", attn_chunk=256))):
+        _same_fields(p, jp)
         got = intensity.site_census(cfg, SHAPES[shape], p)
         want = j_intensity.site_census(jcfg, J_SHAPES[shape], jp)
         assert [s.name for s in got] == [s.name for s in want]
@@ -251,9 +260,10 @@ def test_site_census_equals_the_reference(arch, shape):
 @pytest.mark.parametrize("n_chips", [1, 256])
 def test_estimate_program_equals_the_reference(arch, shape, n_chips):
     cfg, jcfg = get_config(arch), jget(arch)
+    _same_fields(cfg.plan, _ref_plan(jcfg))
     got = intensity.estimate_program(cfg, SHAPES[shape], cfg.plan, n_chips)
     want = j_intensity.estimate_program(jcfg, J_SHAPES[shape],
-                                        _ref_plan(jcfg), n_chips)
+                                        _ref_plan(jcfg), n_chips, tp=1)
     for f in ("flops", "hbm_bytes", "coll_bytes", "peak_mem_per_chip"):
         _close(getattr(got, f), getattr(want, f))
     assert got.coll_ops == want.coll_ops == 0
@@ -276,20 +286,20 @@ def test_moe_capacity_equals_the_reference():
 @pytest.mark.parametrize("arch", ALL_ARCHS + ["tiny-lm"])
 @pytest.mark.parametrize("n_chips", [1, 256])
 def test_estimate_program_train_equals_the_reference(arch, n_chips):
-    """The train branch at ``train_4k`` equals the reference's with
-    ``use_tp=False, fsdp=False`` (the port has neither), under the arch's
-    plan and under a plan with every train gene moved."""
+    """The train branch at ``train_4k`` equals the reference's at the
+    port's one-card ``tp = 1``, under the arch's plan (FSDP gathers
+    included, C6), with ``fsdp=False``, and under a plan with every train
+    gene moved."""
     cfg, jcfg = get_config(arch), jget(arch)
     moved = dict(remat="dots", microbatches=2, fused_grad_reduce=False,
                  grad_compress="int8_ef")
-    for p, jp in ((cfg.plan, _ref_plan(jcfg, fsdp=False)),
-                  (cfg.plan.replace(**moved),
-                   dataclasses.replace(_ref_plan(jcfg, fsdp=False),
-                                       **moved))):
+    for kw in ({}, dict(fsdp=False), dict(fsdp=False, **moved)):
+        p, jp = cfg.plan.replace(**kw), _ref_plan(jcfg, **kw)
+        _same_fields(p, jp)
         got = intensity.estimate_program(cfg, SHAPES["train_4k"], p,
                                          n_chips)
         want = j_intensity.estimate_program(jcfg, J_SHAPES["train_4k"], jp,
-                                            n_chips)
+                                            n_chips, tp=1)
         for f in ("flops", "hbm_bytes", "coll_bytes", "peak_mem_per_chip"):
             _close(getattr(got, f), getattr(want, f))
         assert got.coll_ops == want.coll_ops > 0
@@ -430,7 +440,7 @@ def test_analytic_measurement_equals_the_reference(arch, shape):
     cfg, jcfg = get_config(arch), jget(arch)
     v = Verifier(cfg, shape, n_chips=256,
                  power=power.PowerModel(power.HardwareSpec(**SPEC)))
-    jv = JVerifier(jcfg, shape, n_chips=256,
+    jv = JVerifier(jcfg, shape, n_chips=256, tp=1,
                    power=j_power.PowerModel(j_power.HardwareSpec(**SPEC)))
     got = v.measure_plan(cfg.plan)
     want = jv.measure_plan(_ref_plan(jcfg))
