@@ -188,7 +188,32 @@ a non-zero exit and no result line:
               in a child process with deterministic algorithms (12 steps,
               a checkpoint every 4, a failure at step 6, a resume): the
               resumed losses equal the uninterrupted run's bit for bit and
-              the loss falls.
+              the loss falls;
+ 10. pod      the pod-scale half, counted as a path of its own (the
+              rules step's launches: flash_attention and swiglu must each
+              launch once a layer, microbatch and remat pass), in at most
+              POD_BUDGET_S: (a) qwen2-7b at published width on POD_LAYERS
+              layers, one AdamW step at train_4k_b4 under the offload plan
+              with fused_grad_reduce, with ``rules`` on
+              ``make_host_mesh()`` (the one-rank NCCL group; parameters and
+              AdamW state as Replicate DTensors, the kernels through their
+              ``local_map`` route), its loss and gradient norm held to the
+              same step without rules from the same weights and batch (bit
+              for bit, else the gap printed and held under 2^-8
+              relative); (b) ``train.compress.compressed_psum`` on a CUDA
+              tensor over that group, within one quantization step of its
+              input; (c) the step's first layer's DTensor attention and
+              norm parameters saved and restored onto the mesh's
+              placements, bit for bit;
+              then on the host, the card idle, in a child process: (d)
+              the compiled rung (``core.backends.CompiledBackend``): one
+              trial of qwen2-7b at full depth, decode_32k on pod16x16 (the
+              pod dry run over a fake 256-rank group), its stage times,
+              seconds and Ws at the R740 CPU-node envelope; (e) its
+              roofline row on the H100 spec (``core.roofline``); (f)
+              ``core.adapt`` Steps 4-5 over slices of 64, 128, 256 and 512
+              chips on the analytic rung at train_4k (POD_COST, an
+              operator's assumption), and the best slice's placement.
 
 Every window sampled from the card's NVML energy counter must agree with
 the counter's own difference over it within 5 %.  Kernel phase 3 also times
@@ -2990,6 +3015,222 @@ def phase_train_cli() -> dict:
     return res
 
 
+#: the pod phase: qwen2-7b's layers in the rules step (a), the phase's
+#: wall-time budget, and Steps 4-5's cost rates — one currency unit a
+#: chip-hour and one a kWh, an operator's assumption for the smoke run,
+#: not a price
+POD_LAYERS = 2
+POD_BUDGET_S = 45.0
+POD_SLICES = (64, 128, 256, 512)
+POD_REL = 2.0 ** -8
+
+
+def pod_step(cfg, plan, batch, rules=None):
+    """One AdamW step of ``cfg`` under ``plan`` on weights made from seed 0
+    (``rules``: laid out on its mesh first); returns (params, loss, grad
+    norm)."""
+    from repro_torch.models.model import Model
+    from repro_torch.parallel.param_sharding import distribute
+    from repro_torch.train.step import make_opt_init, make_train_step
+    model = Model(cfg, plan)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    opt = make_opt_init(model)(params)
+    if rules is not None:
+        params, opt, _ = distribute(rules, params, opt)
+    params, opt, met = make_train_step(model, rules)(params, opt, batch)
+    loss, gnorm = met["loss"], met["grad_norm"]
+    if rules is not None:
+        loss, gnorm = loss.full_tensor(), gnorm.full_tensor()
+    del opt
+    return params, float(loss), float(gnorm)
+
+
+def pod_compiled(out: dict) -> None:
+    """(d)-(f), on the host: the compiled rung's trial of qwen2-7b at
+    decode_32k on pod16x16, its roofline row, and Steps 4-5."""
+    from repro_torch.configs import get_config
+    from repro_torch.core.adapt import (CostModel, adjust_placement,
+                                        adjust_resources)
+    from repro_torch.core.backends import (CompiledBackend, MeasureContext,
+                                           load_record, plan_tag)
+    from repro_torch.core.roofline import analyze_record
+    cfg = get_config("qwen2-7b")
+    t0 = time.perf_counter()
+    rung = CompiledBackend()
+    key = f"qwen2-7b__decode_32k__pod16x16_p{plan_tag(cfg.plan)}"
+    for suffix in (".json", ".stages.json", ".trace.jsonl"):
+        # a record cached by an earlier run would be served as this trial
+        (rung.art_dir / f"{key}{suffix}").unlink(missing_ok=True)
+    m = rung.measure(MeasureContext(cfg, "decode_32k", n_chips=256, tp=16),
+                     cfg.plan)
+    rec = load_record(rung.art_dir / f"{key}.json")
+    if not m.ok:
+        raise RuntimeError(f"compiled rung: {m.error}")
+    out["compiled"] = {
+        "s": m.seconds, "w": m.watts, "ws": m.energy_j,
+        "stages": {s.name: s.t1 - s.t0 for s in m.trace.spans
+                   if s.depth == 1},
+        "flops": rec["flops"], "coll_bytes": rec["collectives"]["total_bytes"],
+        "arg_bytes": rec["memory"]["argument_size_in_bytes"],
+        "execution": rec["execution"], "wall_s": time.perf_counter() - t0}
+    row = analyze_record(rec)
+    out["roofline"] = {"dominant": row.dominant, "t_compute": row.t_compute,
+                       "t_memory": row.t_memory,
+                       "t_collective": row.t_collective,
+                       "w_per_chip": row.watts_per_chip,
+                       "useful": row.useful_ratio}
+    cost = CostModel(hw_rate=1.0 / 3600.0, energy_rate=1.0 / 3.6e6)
+    choices = adjust_resources(cfg, "train_4k", cfg.plan, POD_SLICES, cost)
+    out["slices"] = [{"chips": c.chips, "s": c.measurement.seconds,
+                      "ws": c.measurement.energy_j, "cost": c.cost}
+                     for c in choices]
+    out["placement"] = adjust_placement(choices[0].chips)
+
+
+def phase_pod(counters: dict, smi: str) -> dict:
+    """Phase 10 (module docstring): (a)-(c) on the card, then (d)-(f) on
+    the host with the card idle (the dry run is a child process)."""
+    import dataclasses
+    import logging
+    import shutil
+
+    import torch.distributed as dist
+    from repro_torch.ckpt import checkpoint as ckpt
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import get_shape
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.parallel.param_sharding import shardings_of
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.train import compress as C
+    t0 = time.perf_counter()
+    # DTensor's advice to flatten the mesh, once a redistribute: the (1, 1)
+    # mesh has nothing to flatten
+    logging.getLogger("torch.distributed.tensor._redistribute").setLevel(
+        logging.ERROR)
+    pub = get_config("qwen2-7b")
+    cfg = dataclasses.replace(pub, n_layers=POD_LAYERS)
+    plan = cfg.plan.replace(**OFFLOAD, fused_grad_reduce=True)
+    batch = train_batches(cfg, get_shape(TRAIN_SHAPE))[0]
+    # the kernels' forwards, in each microbatch and again in its remat
+    # recompute; the backwards are the plain versions
+    want = POD_LAYERS * plan.microbatches * (2 if plan.remat == "full" else 1)
+    out: dict = {"layers": POD_LAYERS, "of": pub.n_layers}
+    for k in counters.values():
+        k.launches = 0
+    t1 = time.perf_counter()
+    params, loss0, gnorm0 = pod_step(cfg, plan, batch)
+    t_plain = time.perf_counter() - t1
+    out["plain_launches"] = {name: k.launches for name, k in counters.items()}
+    del params
+    with host_mesh() as dm:
+        rules = make_rules(cfg, dm, plan)
+        for k in counters.values():
+            k.launches = 0
+        t1 = time.perf_counter()
+        params, loss1, gnorm1 = pod_step(cfg, plan, batch, rules)
+        out["step_s"] = (t_plain, time.perf_counter() - t1)
+        out["launches"] = {name: k.launches for name, k in counters.items()}
+        gaps = [abs(loss1 - loss0) / abs(loss0),
+                abs(gnorm1 - gnorm0) / abs(gnorm0)]
+        out.update(loss=(loss0, loss1), grad_norm=(gnorm0, gnorm1),
+                   gaps=gaps)
+        log(f"[pod] (a) qwen2-7b, layers {POD_LAYERS} of {pub.n_layers}, "
+            f"{TRAIN_SHAPE}, offload plan, fused_grad_reduce, one AdamW "
+            f"step: without rules loss {loss0!r}, grad norm {gnorm0!r}; "
+            f"with rules on the {tuple(dm.shape)} host mesh "
+            f"({dist.get_backend()}) loss {loss1!r}, grad norm {gnorm1!r}"
+            + ("; bit for bit" if gaps == [0.0, 0.0] else
+               f"; relative gaps {gaps[0]:.3e}, {gaps[1]:.3e} (limit 2^-8)")
+            + f"; launches in the rules step {json.dumps(out['launches'])}"
+            f" (want {want} each of flash_attention and swiglu: "
+            f"{POD_LAYERS} layers x {plan.microbatches} microbatches x "
+            f"forward and remat recompute), in the step without rules "
+            f"{json.dumps(out['plain_launches'])}; steps (init, step and "
+            f"loss read) {out['step_s'][0]:.2f} s without rules, "
+            f"{out['step_s'][1]:.2f} s with (mesh made after the first)")
+        if max(gaps) > POD_REL:
+            raise RuntimeError(f"pod: the rules step is {gaps} from the "
+                               f"step without rules (limit 2^-8)")
+        short = {k: (out["launches"][k], out["plain_launches"][k])
+                 for k in ("flash_attention", "swiglu")
+                 if (out["launches"][k], out["plain_launches"][k])
+                 != (want, want)}
+        if short:
+            raise RuntimeError(f"pod: launches (rules step, step without "
+                               f"rules) {short}, want {want} each")
+
+        gen = torch.Generator(device="cuda").manual_seed(1)
+        x = torch.randn((1 << 20,), generator=gen, device="cuda") * 5
+        y = C.compressed_psum(x)
+        step = float(C.quantize(x)[1].max()) * 0.5
+        err = float((y - x).abs().max())
+        out["psum"] = {"err": err, "half_step": step}
+        log(f"[pod] (b) compressed_psum of 2^20 f32 on the card over the "
+            f"one-rank group: max |y - x| {err:.3e} (limit half a "
+            f"quantization step, {step:.3e})")
+        if not err <= step + 1e-5:
+            raise RuntimeError(f"pod: compressed_psum off by {err}")
+
+        root = Path(__file__).resolve().parent / "artifacts" / "pod_ckpt"
+        shutil.rmtree(root, ignore_errors=True)
+        # layer 0's attention and norms: every kind of leaf the step
+        # holds, at a ninth of the layer's bytes (its MLP is 0.81 GB)
+        tree = {"p": {n: p for n, p in params.state_dict().items()
+                      if n.startswith("layers.0.") and ".mlp." not in n}}
+        nbytes = sum(t.to_local().numel() * t.to_local().element_size()
+                     for t in tree["p"].values())
+        t1 = time.perf_counter()
+        ckpt.save(root, 1, tree)
+        back, _ = ckpt.restore(root, 1, tree, shardings=shardings_of(tree))
+        same = all(
+            back["p"][n].placements == t.placements
+            and torch.equal(back["p"][n].to_local(), t.to_local())
+            for n, t in tree["p"].items())
+        out["ckpt"] = {"bytes": nbytes, "s": time.perf_counter() - t1}
+        log(f"[pod] (c) checkpoint of layer 0's {len(tree['p'])} DTensor "
+            f"attention and norm parameters ({nbytes / 1e9:.3f} GB): saved "
+            f"and restored onto "
+            f"the mesh's placements in {out['ckpt']['s']:.2f} s, "
+            + ("bit for bit" if same else "DIFFERENT"))
+        if not same:
+            raise RuntimeError("pod: the restored parameters differ")
+        del params, tree, back
+        shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    host: dict = {}
+    pod_compiled(host)
+    out.update(host)
+    c = host["compiled"]
+    log(f"[pod] (d) compiled rung, qwen2-7b decode_32k on pod16x16 (host, "
+        f"the card idle): "
+        f"stages " + ", ".join(f"{k} {v:.2f} s" for k, v in
+                               c["stages"].items())
+        + f"; {c['s']:.2f} s, {c['w']:.2f} W, {c['ws']:.2f} Ws at the R740 "
+        f"CPU-node envelope; {c['flops']:.4g} FLOPs, "
+        f"{c['coll_bytes']:.4g} collective B a rank, "
+        f"{c['arg_bytes']} argument B a rank; {c['wall_s']:.1f} s with "
+        f"the child's start; execution {c['execution']!r}")
+    r = host["roofline"]
+    log(f"[pod] (e) roofline on the H100 spec: {r['dominant']}-bound, "
+        f"t_compute {r['t_compute']:.6f} s, t_memory {r['t_memory']:.6f} s, "
+        f"t_collective {r['t_collective']:.6f} s, {r['w_per_chip']:.1f} W "
+        f"a chip, useful {r['useful']:.4f}")
+    log("[pod] (f) Steps 4-5, qwen2-7b train_4k, analytic: "
+        + ", ".join(f"{s['chips']} chips {s['s']:.4f} s {s['cost']:.6f}"
+                    for s in host["slices"])
+        + f" -> {host['slices'][0]['chips']} chips, "
+        f"{host['placement']['pods']} pod(s), mesh "
+        f"{host['placement']['mesh']}")
+    out["seconds"] = time.perf_counter() - t0
+    log(f"kernels pod " + json.dumps(out["launches"])
+        + f"; phase {out['seconds']:.1f} s (budget {POD_BUDGET_S:.0f} s); "
+        f"{smi}")
+    if out["seconds"] > POD_BUDGET_S:
+        raise RuntimeError(f"pod: the phase took {out['seconds']:.1f} s, "
+                           f"over its {POD_BUDGET_S:.0f}-s budget")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
@@ -3071,6 +3312,9 @@ def main() -> int:
     for name, n in cli["launches"].items():
         launches[name] += n
     log(f"[train] the train phase: {time.perf_counter() - t_train:.1f} s")
+    pod = phase_pod(counters, card["smi"])
+    for name, n in pod["launches"].items():
+        launches[name] += n
     log("kernels " + json.dumps(launches))
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
 

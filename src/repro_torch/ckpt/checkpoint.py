@@ -13,11 +13,16 @@ stands for its ``state_dict``.  Keys are the port's names joined by "/"
 ``p/layers.0.mlp.wi``).  A bf16 leaf is stored as its raw 16-bit pattern
 (numpy has no bf16) under the manifest's dtype ``bfloat16``.
 
-``restore(..., device=)`` places each leaf on the restoring job's device.
-The reference's elastic re-sharding onto another mesh comes with the
-train step's collectives (ROADMAP.md §A item 1).  ``AsyncSaver`` copies the tree to the host when ``save``
-is called (a copy, also of CPU tensors, so a later in-place update cannot
-reach the file) and writes it in a worker thread off the critical path.
+``restore(..., device=)`` places each leaf on the restoring job's device;
+``restore(..., shardings=)`` lays each leaf onto a ``DeviceMesh`` as a
+``DTensor`` holding only this rank's shard — the reference's elastic
+re-sharding: a checkpoint written on one mesh (or none) restores onto
+another.  ``save`` of a ``DTensor`` writes the full tensor: every rank
+gathers it (a collective, so every rank calls ``save``), rank 0 writes,
+and the ranks meet at a barrier before ``save`` returns.  ``AsyncSaver``
+copies the tree to the host when ``save`` is called (a copy, also of CPU
+tensors, so a later in-place update cannot reach the file) and writes it
+in a worker thread off the critical path.
 """
 from __future__ import annotations
 
@@ -32,6 +37,7 @@ import numpy as np
 import torch
 
 from repro_torch.device import DeviceLike
+from repro_torch.parallel.sharding import is_dtensor
 
 
 def _items(tree: Any, prefix: str = ""):
@@ -53,20 +59,39 @@ def _dtype_name(t: torch.Tensor) -> str:
 
 
 def _to_numpy(t: torch.Tensor) -> np.ndarray:
-    """A host copy of ``t`` as numpy (bf16 as its 16-bit pattern)."""
+    """A host copy of ``t`` as numpy (bf16 as its 16-bit pattern); a
+    ``DTensor`` is gathered whole first."""
+    if is_dtensor(t):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         t = t.view(torch.int16)
     return t.numpy()
 
 
-def _flatten(tree: Any) -> tuple[dict, dict]:
-    """(key -> numpy host copy, key -> torch dtype name)."""
-    flat, dtypes = {}, {}
+def _flatten(tree: Any) -> tuple[dict, dict, bool]:
+    """(key -> numpy host copy, key -> torch dtype name, whether a leaf
+    was a ``DTensor``)."""
+    flat, dtypes, sharded = {}, {}, False
     for key, t in _items(tree):
+        sharded = sharded or is_dtensor(t)
         flat[key] = _to_numpy(t)
         dtypes[key] = _dtype_name(t)
-    return flat, dtypes
+    return flat, dtypes, sharded
+
+
+def _writer(sharded: bool) -> bool:
+    """Whether this process writes: always, unless the tree held
+    ``DTensor``s in a group of several ranks (then rank 0)."""
+    import torch.distributed as dist
+    return not (sharded and dist.is_initialized() and dist.get_rank() != 0)
+
+
+def _meet(sharded: bool) -> None:
+    """The ranks wait for rank 0's write of a sharded tree."""
+    import torch.distributed as dist
+    if sharded and dist.is_initialized() and dist.get_world_size() > 1:
+        dist.barrier()
 
 
 def _write(ckpt_dir: str | Path, step: int, flat: dict, dtypes: dict,
@@ -95,8 +120,12 @@ def _write(ckpt_dir: str | Path, step: int, flat: dict, dtypes: dict,
 
 def save(ckpt_dir: str | Path, step: int, tree: Any,
          meta: Optional[dict] = None) -> Path:
-    flat, dtypes = _flatten(tree)
-    return _write(ckpt_dir, step, flat, dtypes, meta)
+    flat, dtypes, sharded = _flatten(tree)
+    final = Path(ckpt_dir) / f"step_{step:08d}"
+    if _writer(sharded):
+        final = _write(ckpt_dir, step, flat, dtypes, meta)
+    _meet(sharded)
+    return final
 
 
 class AsyncSaver:
@@ -108,7 +137,10 @@ class AsyncSaver:
 
     def save(self, ckpt_dir, step, tree, meta=None):
         self.wait()
-        flat, dtypes = _flatten(tree)           # snapshot now (host copies)
+        flat, dtypes, sharded = _flatten(tree)  # snapshot now (host copies)
+        if sharded:
+            raise ValueError("AsyncSaver writes from one thread: save a "
+                             "DTensor tree with save()")
 
         def work():
             self.last_path = _write(ckpt_dir, step, flat, dtypes, meta)
@@ -144,12 +176,42 @@ def _unflatten(like: Any, leaf, prefix: str = "") -> Any:
     return leaf(prefix)
 
 
+def _shard(arr: np.ndarray, dtype_name: str, dev: torch.device,
+           sharding) -> torch.Tensor:
+    """``arr`` (the whole leaf) as a ``DTensor`` on ``sharding = (mesh,
+    placements)`` whose local tensor holds only this rank's slice."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor._utils import \
+        compute_local_shape_and_global_offset
+    mesh, placements = sharding
+    shape = tuple(arr.shape)
+    size, off = compute_local_shape_and_global_offset(
+        shape, mesh, tuple(placements))
+    part = arr[tuple(slice(o, o + n) for o, n in zip(off, size))]
+    local = _from_numpy(np.ascontiguousarray(part), dtype_name).to(dev)
+    return DTensor.from_local(
+        local, mesh, tuple(placements), run_check=False,
+        shape=torch.Size(shape),
+        stride=torch.empty(shape, device="meta").stride())
+
+
+def _from_numpy(arr: np.ndarray, dtype_name: str) -> torch.Tensor:
+    t = torch.from_numpy(np.array(arr))
+    if dtype_name == "bfloat16":
+        t = t.view(torch.bfloat16)
+    return t
+
+
 def restore(ckpt_dir: str | Path, step: int, like: Any,
-            device: DeviceLike = "cpu", verify: bool = True
-            ) -> tuple[Any, dict]:
+            device: DeviceLike = "cpu", verify: bool = True,
+            shardings: Any = None) -> tuple[Any, dict]:
     """Restore into the structure of ``like`` (its leaf values are ignored;
     a module's entry comes back as a state dict), each leaf on
-    ``device``.  Raises ``IOError`` when a leaf's hash does not match."""
+    ``device``.  ``shardings`` (``like``'s structure, each leaf a
+    ``(mesh, placements)`` pair, e.g. from
+    ``parallel.param_sharding.shardings_of``) lays each leaf onto its mesh
+    as a ``DTensor`` holding only this rank's shard, on ``mesh``'s device
+    type.  Raises ``IOError`` when a leaf's hash does not match."""
     path = Path(ckpt_dir) / f"step_{step:08d}"
     if not (path / "COMMITTED").exists():
         raise FileNotFoundError(f"no committed checkpoint at {path}")
@@ -163,9 +225,24 @@ def restore(ckpt_dir: str | Path, step: int, like: Any,
                 digest = hashlib.sha256(arr.tobytes()).hexdigest()
                 if digest != leaves_meta[key]["sha256"]:
                     raise IOError(f"integrity check failed for {key}")
-            t = torch.from_numpy(np.array(arr))
-            if leaves_meta[key]["dtype"] == "bfloat16":
-                t = t.view(torch.bfloat16)
-            return t.to(dev)
+            name = leaves_meta[key]["dtype"]
+            sh = _lookup(shardings, key)
+            if sh is not None:
+                return _shard(arr, name, torch.device(sh[0].device_type),
+                              sh)
+            return _from_numpy(arr, name).to(dev)
         tree = _unflatten(like, leaf)
     return tree, manifest["meta"]
+
+
+def _lookup(shardings: Any, key: str):
+    """The ``(mesh, placements)`` of leaf ``key`` in ``shardings`` (nested
+    dicts keyed as the checkpoint's "/"-joined paths), or None."""
+    if shardings is None:
+        return None
+    node = shardings
+    for k in key.split("/"):
+        if not isinstance(node, dict) or k not in node:
+            return None
+        node = node[k]
+    return node

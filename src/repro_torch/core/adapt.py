@@ -1,30 +1,43 @@
-"""The environment-adaptive flow (paper Fig. 1) on one card.
+"""The environment-adaptive flow (paper Fig. 1), on one card or pod slices.
 
-Counterpart of ``repro.core.adapt``, Steps 1-3, 6 and 7:
+Counterpart of ``repro.core.adapt``:
 
   Step 1  Code analysis                -> site census (intensity/loop counts)
   Step 2  Offloadable-part extraction  -> plan genome space for the arch
   Step 3  Search for suitable parts    -> staged destination search
                                           (GA + narrowing, §3.1-3.3)
-  Step 4  Resource-amount adjustment   -> one card: ``chips = 1``
-  Step 5  Placement-location adjustment-> one card: no multi-pod placement
-  Step 6  Execution-file placement +   -> the smoke trial of the chosen plan
-          operation verification          on ``rungs.smoke`` (the measured
-                                          rung: a real run on the card),
-                                          reused from the search when a
-                                          finalist ran on that rung
+  Step 4  Resource-amount adjustment   -> one card: ``chips = 1``; given
+                                          pod ``slices``, chip-slice sizing
+                                          under the §3.3 cost model
+                                          (``adjust_resources``)
+  Step 5  Placement-location adjustment-> one card: no pod; given slices,
+                                          single-pod vs multi-pod mesh
+                                          (``adjust_placement``)
+  Step 6  Execution-file placement +   -> the smoke trial of the chosen plan:
+          operation verification          on one card on ``rungs.smoke``
+                                          (the measured rung: a real run on
+                                          the card), reused from the search
+                                          when a finalist ran on that rung;
+                                          on a slice, the compiled rung (the
+                                          pod dry run) on the Step-5 mesh
   Step 7  In-operation reconfiguration -> ``Reconfigurator``: a runtime
                                           monitor that re-searches when
                                           the measured step energy drifts
                                           (the serving side is
                                           ``telemetry.governor``)
 
-Steps 4-5 at pod scale (slices of 64-512 chips) come with the sharding
-slice (ROADMAP.md).
+Steps 4-5 use the paper's cost framing: "initial cost such as hardware...
+is 1/3 of the total cost, the operation cost such as power and maintenance
+is 1/3" — so the objective blends chip-hours and energy, with rates the
+operator sets (§3.3: "the evaluation formula needs to be set differently
+for each business operator").  ``CostModel`` has no default rates: the
+port carries no price of its own, so a caller that asks for pod slices
+names them.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass, field
 from typing import Callable, Optional
 
@@ -35,9 +48,98 @@ from repro_torch.core.ga import GAConfig
 from repro_torch.core.intensity import site_census
 from repro_torch.core.plan import PlanGenome
 from repro_torch.core.power import H100
-from repro_torch.core.verifier import RungPolicy, Verifier
+from repro_torch.core.verifier import Measurement, RungPolicy, Verifier
 from repro_torch.telemetry.dvfs import envelope_for
 from repro_torch.telemetry.energy import EnergyLedger
+
+
+# ---------------------------------------------------------------------------
+# Step 4 — resource-amount adjustment (§3.3 cost structure)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class CostModel:
+    """Per-step cost in the operator's currency units.
+
+    hw_rate: chip-seconds price (amortized hardware+development, the
+    paper's 'initial cost' third); energy_rate: per-joule price (the
+    'operation cost' third); fixed_rate: the 'other cost' third, per
+    step.  The operator sets both rates; there are no defaults.
+    """
+    hw_rate: float                         # per chip-second
+    energy_rate: float                     # per joule
+    fixed_rate: float = 0.0                # per step
+
+    def step_cost(self, m: Measurement, chips: int) -> float:
+        return (self.hw_rate * chips * m.seconds
+                + self.energy_rate * m.energy_j
+                + self.fixed_rate)
+
+
+@dataclass
+class SliceChoice:
+    chips: int
+    measurement: Measurement
+    cost: float
+    tokens_per_cost: float
+
+
+def adjust_resources(cfg: ArchConfig, shape_name: str, plan: PlanConfig,
+                     slices: tuple[int, ...], cost: CostModel,
+                     requirement: Optional[Requirement] = None,
+                     verifier_factory: Optional[Callable] = None
+                     ) -> list[SliceChoice]:
+    """Measure the plan on several slice sizes; rank by cost efficiency.
+
+    Each slice is measured on the analytic rung, with a pod's model axis
+    (``launch.mesh.POD_SHAPE``: 16-way), unless ``verifier_factory(chips)``
+    builds another verifier.  Returns choices
+    sorted best-first (satisfying the requirement first, then lowest cost
+    per step).
+    """
+    shape = get_shape(shape_name)
+    out: list[SliceChoice] = []
+    for chips in slices:
+        v = (verifier_factory(chips) if verifier_factory
+             else Verifier(cfg, shape_name, n_chips=chips, tp=_pod_tp(),
+                           mode="analytic"))
+        m = v.measure_plan(plan, shape.kind)
+        c = cost.step_cost(m, chips)
+        tokens = shape.tokens if shape.kind != "decode" else \
+            shape.global_batch
+        out.append(SliceChoice(chips, m, c,
+                               tokens / c if c > 0 else 0.0))
+
+    def key(s: SliceChoice):
+        ok = s.measurement.ok and (requirement is None
+                                   or requirement.satisfied(s.measurement))
+        return (not ok, s.cost)
+
+    out.sort(key=key)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Step 5 — placement-location adjustment
+# ---------------------------------------------------------------------------
+
+def _pod_tp() -> int:
+    """A pod's model axis (``launch.mesh.POD_SHAPE``)."""
+    from repro_torch.launch.mesh import POD_SHAPE
+    return POD_SHAPE[1]
+
+
+def adjust_placement(chips: int) -> dict:
+    """Map the chosen slice onto pods of ``launch.mesh.POD_SHAPE`` (256
+    chips): TP stays inside a pod; DP spans pods."""
+    from repro_torch.launch.mesh import POD_SHAPE
+    per_pod = math.prod(POD_SHAPE)
+    pods = max(1, -(-chips // per_pod))
+    return {"pods": pods,
+            "mesh": ("pod", "data", "model") if pods > 1
+            else ("data", "model"),
+            "multi_pod": pods > 1,
+            "note": "TP inside a pod; DP across pods"}
 
 
 # ---------------------------------------------------------------------------
@@ -183,8 +285,19 @@ def adapt(cfg: ArchConfig, shape_name: str,
           verify: bool = False,
           rungs: Optional[RungPolicy] = None,
           backends: Optional[dict] = None,
-          log: Optional[Callable[[str], None]] = None) -> AdaptationReport:
-    """Run Steps 1-3, 6 and 7 for (arch, shape) on one card.
+          log: Optional[Callable[[str], None]] = None,
+          slices: Optional[tuple[int, ...]] = None,
+          cost: Optional[CostModel] = None) -> AdaptationReport:
+    """Run Steps 1-7 for (arch, shape): on one card (``chips = 1``), or,
+    given pod ``slices`` and their ``cost`` model, with Steps 4-5 at pod
+    scale.
+
+    Given slices, the search runs at one pod's chips and model axis (as
+    the reference's),
+    Step 4 ranks the slices by ``adjust_resources`` and Step 5 places the
+    best on one pod or two; Step 6's smoke trial then runs on the compiled
+    rung (the pod dry run, on the Step-5 mesh), whatever ``rungs.smoke``
+    says: a slice is larger than the card the measured rung runs on.
 
     ``rungs`` selects the measurement rung per consumer (see
     ``repro_torch.core.verifier.RungPolicy``): Step 3's GA searches on
@@ -198,6 +311,12 @@ def adapt(cfg: ArchConfig, shape_name: str,
     shape = get_shape(shape_name)
     rungs = rungs or RungPolicy()
     backends = backends if backends is not None else {}
+    if slices and cost is None:
+        raise ValueError("pod slices need the operator's CostModel")
+    n_search, tp = 1, 1
+    if slices:
+        from repro_torch.launch.mesh import POD_SHAPE
+        n_search, tp = math.prod(POD_SHAPE), _pod_tp()
 
     # 1: code analysis
     rep.census = [dataclasses.asdict(s) for s in site_census(cfg, shape)]
@@ -208,20 +327,48 @@ def adapt(cfg: ArchConfig, shape_name: str,
     if log:
         log(f"step 2: genes = {rep.genes}")
     # 3: search (staged destinations incl. GA + narrowing), explicit rungs
-    v = Verifier(cfg, shape_name, mode=rungs.search, rungs=rungs,
-                 backends=backends)
+    v = Verifier(cfg, shape_name, n_chips=n_search, tp=tp,
+                 mode=rungs.search, rungs=rungs, backends=backends)
     rep.selection = select_destination(cfg, shape.kind, v, requirement, ga,
                                        log=log)
     rep.plan = rep.selection.chosen.genome.to_plan()
-    # 4-5: one card
-    rep.chips = 1
-    rep.placement = {"pods": 1, "multi_pod": False,
-                     "note": "one card: no slice or pod placement"}
+    if slices:
+        # 4: resource-amount adjustment; 5: placement
+        rep.slices = adjust_resources(cfg, shape_name, rep.plan, slices,
+                                      cost, requirement)
+        rep.chips = rep.slices[0].chips
+        rep.placement = adjust_placement(rep.chips)
+        if log:
+            log("step 4: " + ", ".join(
+                f"{s.chips}ch->{s.cost:.4f}/step" for s in rep.slices))
+    else:
+        # 4-5: one card
+        rep.chips = 1
+        rep.placement = {"pods": 1, "multi_pod": False,
+                         "note": "one card: no slice or pod placement"}
     # 6: operation verification.  The reference re-measures the chosen
     # plan here because Step 4 moved it to another chip count; on one card
     # that count is the search's own, so the search's verifier answers: a
     # finalist already tried on the smoke rung is not run again
-    if verify:
+    if verify and slices:
+        # a slice's smoke: the compiled rung on the Step-5 mesh
+        from repro_torch.core.backends import CompiledBackend
+        v6 = Verifier(cfg, shape_name, n_chips=rep.chips, tp=tp, rungs=rungs,
+                      backends={"compiled": backends.get(
+                          "compiled", CompiledBackend(
+                              multi_pod=rep.placement["multi_pod"]))})
+        m6 = v6.measure_plan(rep.plan, shape.kind, rung="compiled")
+        rep.verified = {"status": "OK" if m6.ok else "FAIL",
+                        "rung": "compiled",
+                        "seconds": m6.seconds,
+                        "watts": m6.watts,
+                        "energy_ws": m6.energy_j,
+                        "utilization": m6.utilization,
+                        "error": m6.error}
+        if log:
+            log(f"step 6 [compiled]: "
+                f"{'OK' if m6.ok else 'FAIL ' + m6.error[:60]}")
+    elif verify:
         m6 = v.measure(rep.selection.chosen.genome, rung=rungs.smoke)
         trace = m6.trace
         rep.verified = {"status": "OK" if m6.ok else "FAIL",
@@ -239,7 +386,8 @@ def adapt(cfg: ArchConfig, shape_name: str,
     # 7: hand back the runtime reconfigurator (same verification ladder)
     rep.reconfigurator = Reconfigurator(
         cfg, shape_name,
-        verifier_factory=lambda: Verifier(cfg, shape_name, mode=rungs.search,
+        verifier_factory=lambda: Verifier(cfg, shape_name, n_chips=n_search,
+                                          tp=tp, mode=rungs.search,
                                           rungs=rungs,
                                           backends=dict(backends)))
     return rep

@@ -13,6 +13,14 @@ ragged edges, so decode batches of any size reach them.
 CPU), the backward differentiates the plain version rematerialized from
 the saved inputs — so the 'pallas' destination trains as well as it
 serves.  ``mriq`` has no backward, as in the reference.
+
+``DTensor`` inputs (parameters distributed over a ``DeviceMesh``) take the
+route GSPMD takes around the reference's ``pallas_call``, which it cannot
+partition: every input is redistributed to ``Replicate()`` (a ``Partial``
+is reduced, never read as it is) and the wrapper runs on the local, whole
+tensors through ``local_map`` — the kernel on ``cuda``, the plain version
+on the CPU or the meta device — its outputs replicated.  The autograd
+Functions run inside, so the backward takes the same route.
 """
 from __future__ import annotations
 
@@ -21,6 +29,7 @@ import math
 import torch
 
 from repro_torch.device import same_device
+from repro_torch.parallel.sharding import is_dtensor, replicate
 from repro_torch.kernels import ref as _ref
 from repro_torch.kernels.flash_attention import flash_attention_cuda
 from repro_torch.kernels.mriq import mriq_cuda
@@ -36,6 +45,34 @@ def _blk(n: int, target: int) -> int:
     while n % b:
         b -= 1
     return b
+
+
+def _plain(*tensors) -> bool:
+    """Whether the plain version runs: the tensors lie on the CPU or the
+    meta device (shapes only).  Anything else launches the kernel, whose
+    wrapper refuses a device that is not ``cuda``."""
+    return same_device(*tensors).type in ("cpu", "meta")
+
+
+def _on_dtensors(fn, n_out: int, *args):
+    """``fn(*args)``, or, when an argument is a ``DTensor``, ``fn`` through
+    ``local_map`` on the ``DTensor`` arguments redistributed to
+    ``Replicate()`` (plain tensors pass as they are, whole), its ``n_out``
+    outputs replicated on the same mesh."""
+    dts = [a for a in args if is_dtensor(a)]
+    if not dts:
+        return fn(*args)
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+    mesh = dts[0].device_mesh
+    # one output's placements are a list: local_map reads a tuple as one
+    # placement list per output
+    rep = [Replicate()] * mesh.ndim
+    args = [replicate(a) for a in args]
+    ins = tuple(rep if is_dtensor(a) else None for a in args)
+    outs = rep if n_out == 1 else (rep,) * n_out
+    return local_map(fn, out_placements=outs, in_placements=ins,
+                     device_mesh=mesh)(*args)
 
 
 def _plain_vjp(fn, saved, grads):
@@ -55,7 +92,7 @@ class _Flash(torch.autograd.Function):
     def forward(ctx, q, k, v, causal, window):
         ctx.save_for_backward(q, k, v)
         ctx.causal, ctx.window = causal, window
-        if same_device(q, k, v).type == "cpu":
+        if _plain(q, k, v):
             return _ref.flash_attention_ref(q, k, v, causal, window)
         return flash_attention_cuda(q.contiguous(), k.contiguous(),
                                     v.contiguous(), causal, window)
@@ -70,13 +107,14 @@ class _Flash(torch.autograd.Function):
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
     """q (B,S,Hq,D); k, v (B,T,Hkv,D) -> (B,S,Hq,D).  ``causal`` and
     ``window`` are not differentiated."""
-    return _Flash.apply(q, k, v, causal, window)
+    return _on_dtensors(lambda q, k, v: _Flash.apply(q, k, v, causal,
+                                                     window), 1, q, k, v)
 
 
 def mriq(kx, ky, kz, phi_mag, x, y, z):
     """Parboil MRI-Q -> (Qr, Qi)."""
     args = (kx, ky, kz, phi_mag, x, y, z)
-    if same_device(*args).type == "cpu":
+    if _plain(*args):
         return _ref.mriq_ref(*args)
     return mriq_cuda(*(a.contiguous() for a in args))
 
@@ -85,7 +123,7 @@ class _Swiglu(torch.autograd.Function):
     @staticmethod
     def forward(ctx, xf, wi, wg, wo):
         ctx.save_for_backward(xf, wi, wg, wo)
-        if same_device(xf, wi, wg, wo).type == "cpu":
+        if _plain(xf, wi, wg, wo):
             return _ref.swiglu_ref(xf, wi, wg, wo)
         return swiglu_cuda(xf.contiguous(), wi.contiguous(),
                            wg.contiguous(), wo.contiguous())
@@ -98,17 +136,19 @@ class _Swiglu(torch.autograd.Function):
 def fused_swiglu(x, wi, wg, wo):
     """x (..., d) -> (..., d); flattens leading dims for the kernel (and
     its backward, as the reference's, works on the flattened (T, d))."""
-    lead = x.shape[:-1]
-    d = x.shape[-1]
-    y = _Swiglu.apply(x.reshape(math.prod(lead), d), wi, wg, wo)
-    return y.reshape(*lead, d)
+    def run(x, wi, wg, wo):
+        lead = x.shape[:-1]
+        d = x.shape[-1]
+        y = _Swiglu.apply(x.reshape(math.prod(lead), d), wi, wg, wo)
+        return y.reshape(*lead, d)
+    return _on_dtensors(run, 1, x, wi, wg, wo)
 
 
 class _Rglru(torch.autograd.Function):
     @staticmethod
     def forward(ctx, log_a, b):
         ctx.save_for_backward(log_a, b)
-        if same_device(log_a, b).type == "cpu":
+        if _plain(log_a, b):
             return _ref.rglru_ref(log_a, b)
         return rglru_cuda(log_a.float().contiguous(), b.float().contiguous())
 
@@ -120,7 +160,7 @@ class _Rglru(torch.autograd.Function):
 def rglru(log_a, b):
     """log_a, b (B,S,W) -> h (B,S,W) f32: h_t = exp(log_a_t) h_{t-1} +
     b_t.  The backward takes the cotangent in f32, as the reference's."""
-    return _Rglru.apply(log_a, b)
+    return _on_dtensors(_Rglru.apply, 1, log_a, b)
 
 
 class _Ssd(torch.autograd.Function):
@@ -129,7 +169,7 @@ class _Ssd(torch.autograd.Function):
         ctx.save_for_backward(x, dt, A, Bm, Cm)
         ctx.chunk = chunk
         q = _blk(x.shape[1], chunk)
-        if same_device(x, dt, A, Bm, Cm).type == "cpu":
+        if _plain(x, dt, A, Bm, Cm):
             return _ref.ssd_ref(x, dt, A, Bm, Cm, q)
         return ssd_cuda(x.contiguous(), dt.float().contiguous(),
                         A.float().contiguous(), Bm.to(x.dtype).contiguous(),
@@ -149,4 +189,5 @@ def ssd(x, dt, A, Bm, Cm, chunk: int = 128):
     ``_blk(S, chunk)`` positions as the reference picks them.  ``chunk`` is
     not differentiated; an unused final state's cotangent arrives as
     zeros."""
-    return _Ssd.apply(x, dt, A, Bm, Cm, chunk)
+    return _on_dtensors(lambda *a: _Ssd.apply(*a, chunk), 2,
+                        x, dt, A, Bm, Cm)

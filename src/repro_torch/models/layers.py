@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, PlanConfig
+from repro_torch.parallel.sharding import is_dtensor
 
 NEG_INF = -1e30
 
@@ -180,6 +181,25 @@ def _kv_dequant(q, s, dtype):
     return (q.float() * s).to(dtype)
 
 
+def _write_rows(dst, dim: int, index, src) -> None:
+    """``dst.index_copy_(dim, index, src)``.  A ``DTensor`` cache (its
+    entries batch-sharded and whole along ``dim``, as a layer's gathered
+    cache is: ``parallel.sharding.layer_operands``) takes the copy on each
+    rank's local tensors, its own batch rows from ``src`` laid out the same
+    way: no sharding strategy is needed, which some torch releases lack
+    for ``index_copy_``."""
+    if not is_dtensor(dst):
+        dst.index_copy_(dim, index, src)
+        return
+    if any(p.is_shard(dim) for p in dst.placements):
+        raise ValueError(f"a cache sharded along the written dim {dim}")
+    if is_dtensor(src):
+        src = src.redistribute(dst.device_mesh, dst.placements).to_local()
+    if is_dtensor(index):
+        index = index.full_tensor()
+    dst.to_local().index_copy_(dim, index, src)
+
+
 def run_attention(params, x, cfg: ArchConfig, plan: PlanConfig, positions,
                   cache=None, decode=False, window=0):
     """Temporal-mixing site. Returns (y, cache).
@@ -207,17 +227,17 @@ def run_attention(params, x, cfg: ArchConfig, plan: PlanConfig, positions,
         if int8_cache:
             kq, ks = _kv_quant(k)
             vq, vs = _kv_quant(v)
-            ck.index_copy_(1, slot, kq)
-            cv.index_copy_(1, slot, vq)
-            cache["k_scale"].index_copy_(1, slot, ks)
-            cache["v_scale"].index_copy_(1, slot, vs)
+            _write_rows(ck, 1, slot, kq)
+            _write_rows(cv, 1, slot, vq)
+            _write_rows(cache["k_scale"], 1, slot, ks)
+            _write_rows(cache["v_scale"], 1, slot, vs)
             kk = _kv_dequant(ck, cache["k_scale"], q.dtype)
             vv = _kv_dequant(cv, cache["v_scale"], q.dtype)
         else:
-            ck.index_copy_(1, slot, k.to(ck.dtype))
-            cv.index_copy_(1, slot, v.to(cv.dtype))
+            _write_rows(ck, 1, slot, k.to(ck.dtype))
+            _write_rows(cv, 1, slot, v.to(cv.dtype))
             kk, vv = ck.to(q.dtype), cv.to(q.dtype)
-        kpos.index_copy_(0, slot, pos.to(kpos.dtype))
+        _write_rows(kpos, 0, slot, pos.to(kpos.dtype))
         valid = (kpos >= 0) & (kpos <= pos)
         kpos_m = torch.where(valid, kpos, pos + t + 10)  # fails causal rule
         qpos = pos.expand(q.shape[1])
@@ -247,14 +267,13 @@ def run_attention(params, x, cfg: ArchConfig, plan: PlanConfig, positions,
             if int8_cache:
                 kq, ks = _kv_quant(ktail)
                 vq, vs = _kv_quant(vtail)
-                cache["k"][:, slots] = kq
-                cache["v"][:, slots] = vq
-                cache["k_scale"][:, slots] = ks
-                cache["v_scale"][:, slots] = vs
+                rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
             else:
-                cache["k"][:, slots] = ktail.to(cache["k"].dtype)
-                cache["v"][:, slots] = vtail.to(cache["v"].dtype)
-            cache["kpos"][slots] = tailpos
+                rows = {"k": ktail.to(cache["k"].dtype),
+                        "v": vtail.to(cache["v"].dtype)}
+            rows["kpos"] = tailpos
+            for name, r in rows.items():
+                _write_rows(cache[name], 0 if name == "kpos" else 1, slots, r)
 
     y = torch.einsum("bshk,hkd->bsd", o, params["wo"].to(o.dtype))
     return y, cache

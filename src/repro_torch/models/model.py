@@ -19,6 +19,7 @@ import torch
 from repro_torch.configs.base import ArchConfig, PlanConfig, ShapeSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
+from repro_torch.parallel.sharding import batch_only
 
 
 class InputSpec(NamedTuple):
@@ -33,7 +34,7 @@ def cross_entropy(logits, targets):
     sharded, which the reference's iota-compare is for)."""
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, targets.long()[..., None])[..., 0]
+    ll = torch.gather(logits, -1, targets.long().unsqueeze(-1))[..., 0]
     return (lse - ll).mean()
 
 
@@ -76,6 +77,9 @@ class Model:
         ``batch["targets"]`` plus 0.01 x the summed MoE aux loss."""
         logits, _, aux = T.forward(params, batch, self.cfg, self.plan,
                                    rules=rules)
+        if rules is not None:
+            # DTensor logits: the target's gather reads whole vocab rows
+            logits = batch_only(logits, rules)
         ce = cross_entropy(logits, batch["targets"])
         loss = ce + 0.01 * aux
         return loss, {"ce": ce, "aux": aux}

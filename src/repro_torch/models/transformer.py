@@ -19,7 +19,11 @@ residual stream after the embedding and after every layer to (batch,
 seq_sharded, act_embed), and the logits to (batch, -, vocab), at the
 reference's four points.  A plain tensor lies on no mesh and passes
 through unchanged, so on one card, or with ``rules=None``, every output is
-what it is without them.
+what it is without them.  Parameters that are ``DTensor``s
+(``parallel.param_sharding.distribute``) are gathered where they are used:
+the embedding table and the output projection once, each layer's weights
+and cache around the layer (``parallel.sharding.layer_operands``); plain
+inputs beside them (tokens, positions, masks) count as replicated.
 """
 from __future__ import annotations
 
@@ -33,7 +37,10 @@ from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
-from repro_torch.parallel.sharding import constrain
+from repro_torch.parallel.sharding import (batch_only, constrain,
+                                           is_dtensor, layer_operands,
+                                           mixed_inputs, replicate,
+                                           write_back)
 
 # init rules: ("normal", scale) | ("zeros",) | ("ones",) | ("lru_lambda",)
 
@@ -226,7 +233,20 @@ def init_cache(cfg: ArchConfig, batch: int, seq_len: int,
 def apply_layer(p: Layer, x, cfg: ArchConfig, plan: PlanConfig, positions,
                 cache, decode: bool, rules=None):
     """One layer: returns (x, cache, aux), aux the MoE layer's load-balance
-    loss (0 elsewhere), as the reference's ``apply_layer``."""
+    loss (0 elsewhere), as the reference's ``apply_layer``.  On a
+    ``DTensor`` stream the layer runs on its gathered operands and writes
+    its cache back into the cache's own placements."""
+    if rules is not None and is_dtensor(x):
+        view, xl, local = layer_operands(p, x, cache, rules)
+        x, local, aux = _apply_layer(view, xl, cfg, plan, positions, local,
+                                     decode, rules)
+        write_back(cache, local)
+        return x, cache, aux
+    return _apply_layer(p, x, cfg, plan, positions, cache, decode, rules)
+
+
+def _apply_layer(p, x, cfg: ArchConfig, plan: PlanConfig, positions,
+                 cache, decode: bool, rules=None):
     aux = x.new_zeros((), dtype=torch.float32)
     h = L.apply_norm(p.norm1, x, cfg)
     if p.kind == "ssm":
@@ -306,10 +326,10 @@ def embed_inputs(params: Transformer, batch: dict, cfg: ArchConfig,
     del rules
     dt = L.cdtype(plan)
     if cfg.frontend == "audio_frames":
-        return batch["features"].to(dt) @ params.frontend.to(dt)
+        return batch["features"].to(dt) @ replicate(params.frontend).to(dt)
     # gather, then cast the B*S rows: the same numbers as the reference's
     # cast-then-gather without casting the whole table every step
-    h = params.embed[batch["tokens"]].to(dt)
+    h = replicate(params.embed)[batch["tokens"]].to(dt)
     if cfg.frontend == "vision_patches" and "patch_embeds" in batch:
         pe = batch["patch_embeds"]
         npatch = pe.shape[1]
@@ -338,6 +358,21 @@ def forward(params: Transformer, batch: dict, cfg: ArchConfig,
     plan's ``remat`` (the tail does not, as in the reference).  ``rules``
     constrains the residual stream and the logits (module docstring).
     """
+    with _dtensor_inputs(params, rules):
+        return _forward(params, batch, cfg, plan, cache, decode, rules)
+
+
+def _dtensor_inputs(params: Transformer, rules):
+    """Plain tensors count as replicated beside ``DTensor`` parameters,
+    which need the ``rules`` that laid them out."""
+    if is_dtensor(params.embed) and rules is None:
+        raise ValueError("DTensor parameters need the sharding rules they "
+                         "were distributed with")
+    return mixed_inputs(params.embed)
+
+
+def _forward(params: Transformer, batch: dict, cfg: ArchConfig,
+             plan: PlanConfig, cache: Optional[list], decode: bool, rules):
     h = embed_inputs(params, batch, cfg, plan, rules)
     if decode:
         positions = torch.as_tensor(batch["pos"], dtype=torch.int32,
@@ -369,6 +404,8 @@ def forward(params: Transformer, batch: dict, cfg: ArchConfig,
         aux = aux + a
     h = L.apply_norm(params.final_norm, h, cfg)
     wout = params.embed.T if cfg.tie_embeddings else params.lm_head
+    if is_dtensor(wout):
+        h, wout = batch_only(h, rules), replicate(wout)
     logits = torch.einsum("bsd,dv->bsv", h, wout.to(h.dtype))
     if rules is not None:
         # vocab gets the model axis (loss reductions stay sharded)

@@ -267,3 +267,76 @@ def batch_shardings(model, shape, rules: ShardingRules) -> dict:
     specs = model.input_specs(shape)
     return {k: pick_spec(specs[k].shape, [v], rules)
             for k, v in names.items()}
+
+
+# ---------------------------------------------------------------------------
+# DTensor parameters, optimizer state and caches
+# ---------------------------------------------------------------------------
+
+
+def distribute_tensor(t, spec: Sequence, mesh: Any):
+    """``t`` (the whole tensor, the same on every rank) as a ``DTensor`` at
+    the placements of ``spec`` on ``mesh``.  Each rank keeps its own slice
+    of the tensor it holds: nothing is sent (on the meta device nothing is
+    allocated).  A ``DTensor`` is redistributed."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor import distribute_tensor as dist_t
+    from repro_torch.parallel.sharding import to_placements
+    placements = to_placements(spec, mesh)
+    if isinstance(t, DTensor):
+        return t.redistribute(mesh, placements)
+    return dist_t(t.detach(), mesh, placements, src_data_rank=None)
+
+
+def distribute_tree(tree: Any, specs: Any, mesh: Any) -> Any:
+    """``distribute_tensor`` over nested dicts and lists of tensors, with
+    ``specs`` in the same nesting (0-d leaves replicated)."""
+    if isinstance(tree, Mapping):
+        return {k: distribute_tree(v, specs[k], mesh)
+                for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(distribute_tree(v, s, mesh)
+                          for v, s in zip(tree, specs))
+    return distribute_tensor(tree, specs, mesh)
+
+
+def distribute(rules: ShardingRules, params: Any, opt_state: Any = None,
+               cache: Optional[list] = None, cfg=None):
+    """Lay a ``Transformer``'s parameters, and optionally an optimizer
+    state (``train.step.make_opt_init``) and a cache
+    (``Model.init_cache``), onto ``rules.mesh`` as ``DTensor``s at the
+    placements that ``param_spec_tree``, ``opt_shardings`` and
+    ``cache_shardings`` resolve.  The parameters are replaced in place
+    (each a frozen ``nn.Parameter`` over its ``DTensor``); returns
+    ``(params, opt_state, cache)``, ``None`` for what was not given."""
+    import torch
+    mesh = rules.mesh
+    if opt_state is not None:
+        # the state's specs are resolved on the parameters' global shapes
+        opt_state = distribute_tree(
+            opt_state, opt_shardings(opt_state, params, rules, cfg), mesh)
+    specs = param_spec_tree(params, rules)
+    for name, p in list(params.named_parameters()):
+        *path, leaf = name.split(".")
+        mod = params.get_submodule(".".join(path)) if path else params
+        d = distribute_tensor(p.data, specs[name], mesh)
+        q = torch.nn.Parameter(d, requires_grad=False)
+        if isinstance(mod, torch.nn.ParameterDict):
+            mod[leaf] = q
+        else:
+            setattr(mod, leaf, q)
+    if cache is not None:
+        cache = distribute_tree(cache, cache_shardings(cache, rules), mesh)
+    return params, opt_state, cache
+
+
+def shardings_of(tree: Any) -> Any:
+    """The ``(mesh, placements)`` of every ``DTensor`` in ``tree`` (a
+    module as its ``state_dict``; nested dicts), in its nesting: what
+    ``ckpt.checkpoint.restore(..., shardings=)`` lays a checkpoint onto."""
+    import torch
+    if isinstance(tree, torch.nn.Module):
+        tree = tree.state_dict()
+    if isinstance(tree, Mapping):
+        return {k: shardings_of(v) for k, v in tree.items()}
+    return (tree.device_mesh, tuple(tree.placements))

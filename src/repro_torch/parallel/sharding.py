@@ -16,6 +16,15 @@ one-axis tuple is the name).  An empty spec replicates every dim.
 ``to_placements`` turns a spec into DTensor placements, one per mesh dim;
 ``constrain`` redistributes a ``DTensor`` to them.
 
+Parameters distributed as DTensors (``param_sharding.distribute``) are
+stored at their specs' placements and gathered where a layer uses them
+(``layer_operands``): the layer's weights are redistributed to
+``Replicate()`` and its input and cache to their batch placements only, so
+every op inside a layer works on batch-sharded activations and whole
+weights, and its gradients reduce back onto the stored placements.  This
+is ZeRO-3 execution of the stored layout; the model axis holds weights
+and caches but does not split a layer's products.
+
 Mesh axes:
   single-pod   (data=16, model=16)
   multi-pod    (pod=2, data=16, model=16)   # batch shards over (pod, data)
@@ -23,6 +32,7 @@ Mesh axes:
 """
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 from typing import Any, Optional, Sequence
 
@@ -217,6 +227,94 @@ def logical(rules: ShardingRules, names: Sequence[Optional[str]]) -> tuple:
 
 def spec_for(rules: ShardingRules, names: Sequence[Optional[str]]) -> tuple:
     return rules.spec(*names)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def mixed_inputs(x):
+    """A context in which plain tensors count as replicated beside the
+    ``DTensor`` ``x`` (nothing when ``x`` is plain): torch's
+    ``implicit_replication``, which nests (torch's own resets the switch
+    to off when an inner block ends)."""
+    if not is_dtensor(x):
+        return contextlib.nullcontext()
+    return _implicit_replication()
+
+
+@contextlib.contextmanager
+def _implicit_replication():
+    from torch.distributed.tensor import DTensor
+    d = DTensor._op_dispatcher
+    before = d._allow_implicit_replication
+    d._allow_implicit_replication = True
+    try:
+        yield
+    finally:
+        d._allow_implicit_replication = before
+
+
+def replicate(x):
+    """A ``DTensor`` redistributed to ``Replicate()`` on every mesh dim (a
+    ``Partial`` is reduced first, never read as it is); anything else
+    unchanged."""
+    if not is_dtensor(x):
+        return x
+    from torch.distributed.tensor import Replicate
+    return x.redistribute(x.device_mesh, [Replicate()] * x.device_mesh.ndim)
+
+
+def batch_only(x, rules: ShardingRules, name: str = "batch"):
+    """A ``DTensor`` redistributed so that only its first dim stays
+    sharded, over the axes the rules give logical ``name`` (dropped when
+    they do not divide it); a 0-d tensor is replicated."""
+    if not is_dtensor(x):
+        return x
+    if x.ndim == 0:
+        return replicate(x)
+    return constrain(x, rules, name, *([None] * (x.ndim - 1)))
+
+
+class _LayerView:
+    """A layer's parameter dicts, read as ``apply_layer`` reads a ``Layer``
+    (``kind`` and one dict per sub-block)."""
+
+    def __init__(self, kind: str, blocks: dict):
+        self.kind = kind
+        for k, v in blocks.items():
+            setattr(self, k, v)
+
+
+#: a ``Layer``'s sub-blocks
+LAYER_BLOCKS = ("norm1", "mixer", "norm2", "mlp", "moe")
+
+
+def layer_operands(p, x, cache, rules: ShardingRules):
+    """What one layer computes on when its parameters are ``DTensor``s: a
+    view of the layer with every weight replicated, the input ``x`` with
+    only its batch dim sharded, and the cache's entries likewise (``kpos``
+    replicated).  Returns ``(layer, x, cache)``; ``write_back`` stores the
+    cache that the layer updated into the original's placements."""
+    blocks = {name: {k: replicate(v) for k, v in getattr(p, name).items()}
+              for name in LAYER_BLOCKS if hasattr(p, name)}
+    local = None
+    if cache is not None:
+        local = {k: replicate(t) if k == "kpos"
+                 else batch_only(t, rules, "cache_batch")
+                 for k, t in cache.items()}
+    return _LayerView(p.kind, blocks), batch_only(x, rules), local
+
+
+def write_back(cache, local) -> None:
+    """Copy a layer's updated cache ``local`` into ``cache``'s own
+    placements (nothing to do for an entry that is ``cache``'s tensor)."""
+    if cache is None:
+        return
+    for k, t in cache.items():
+        if local[k] is not t:
+            t.copy_(local[k].redistribute(t.device_mesh, t.placements))
 
 
 def constrain(x, rules: ShardingRules, *names: Optional[str]):

@@ -6,9 +6,9 @@ scheme stays unbiased over steps (1-bit-Adam/EF-SGD style).
 ``ef_compress_tree`` is the numerics path inside the train step; like the
 optimizers it works on leaf dicts (reference leaf path -> the port's
 tensors; see ``train.optimizer``), so each stacked leaf gets one scale and
-one error buffer, as in the reference.  The reference's
-``compressed_psum`` is a collective under ``shard_map`` and comes with the
-train step's collectives (ROADMAP.md §A item 1).
+one error buffer, as in the reference.  ``compressed_psum`` is the
+int8-on-the-wire sum over a ``torch.distributed`` group, the reference's
+``shard_map`` collective.
 """
 from __future__ import annotations
 
@@ -60,3 +60,26 @@ def ef_compress_tree(grads: dict, err_tree: dict):
         gh, err[k] = ef_compress(leaf_value(k, gs), err_tree[k])
         ghat[k] = list(gh.unbind(0)) if is_stacked(k) else [gh]
     return ghat, err
+
+
+def compressed_psum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """int8-on-the-wire sum of ``x`` over ``group`` (default: the world),
+    divided by the group's size: the reference's ``compressed_psum`` under
+    ``shard_map``, in its order and dtypes.
+
+    Each rank quantizes its own ``x`` in blocks (``quantize``); the int8
+    payloads, widened to int32 so that the sum cannot overflow, are summed
+    with ``all_reduce``; the scales are reduced with MAX (a replica's
+    blocks share its own scale layout, so the common scale is the
+    largest); the sum times the max scale, cut to ``x``'s size, is divided
+    by the number of ranks and cast back to ``x``'s dtype.  As in the
+    reference, the payload travels widened to int32."""
+    import torch.distributed as dist
+    q, s = quantize(x)
+    qsum = q.to(torch.int32)
+    dist.all_reduce(qsum, op=dist.ReduceOp.SUM, group=group)
+    smax = s.clone()
+    dist.all_reduce(smax, op=dist.ReduceOp.MAX, group=group)
+    approx = (qsum.float() * smax).reshape(-1)[:x.numel()]
+    n = dist.get_world_size(group)
+    return (approx / n).reshape(x.shape).to(x.dtype)

@@ -12,10 +12,18 @@ the loss and the gradient norm before the clip.
 
 The parameters are frozen (``requires_grad=False``) outside a step; a step
 turns gradients on for its own parameters while it runs, so a serving path
-on the same weights builds no autograd graph.  ``fused_grad_reduce`` pins
-the reference's gradients to the parameters' sharding; on one card there is
-no reduction to fuse, and the field is read by the analytic estimate only
-(``core.intensity.estimate_program``'s collective count).
+on the same weights builds no autograd graph.
+
+``make_train_step(model, rules)`` is the step on a mesh: the parameters and
+the optimizer state are ``DTensor``s laid out by
+``parallel.param_sharding.distribute`` under ``rules``, the loss runs under
+``rules``, and each gradient is *pinned* to its parameter's placements (a
+redistribute, which reduces a ``Partial`` gradient over the batch axes):
+after the backward of a single batch, after each microbatch's sum, and —
+when ``plan.fused_grad_reduce`` — once more after the accumulation, as the
+reference pins its gradients with ``with_sharding_constraint``.  On the
+one card's ``(1, 1)`` mesh every placement is ``Replicate()`` and a pin
+moves nothing.
 """
 from __future__ import annotations
 
@@ -70,11 +78,22 @@ def _microbatches(batch: dict, n: int) -> list:
             for i in range(n)]
 
 
-def make_grad_step(model: Model):
+def pin(g, p):
+    """``g`` redistributed to parameter ``p``'s placements (a plain tensor
+    unchanged)."""
+    from repro_torch.parallel.sharding import is_dtensor
+    if not is_dtensor(g):
+        return g
+    return g.redistribute(p.device_mesh, p.placements)
+
+
+def make_grad_step(model: Model, rules=None):
     """``grads_and_loss(params, batch) -> (name -> gradient, loss)``: the
     train step's gradients before compression and the clip, summed over
     the plan's microbatches in ``accum_dtype`` (a single batch: in the
-    parameters' dtype) and divided by their number, and the mean loss."""
+    parameters' dtype) and divided by their number, and the mean loss.
+    Under ``rules`` each gradient is pinned to its parameter's placements
+    after every microbatch's sum (module docstring)."""
     plan = model.plan
     n_micro = plan.microbatches
     acc_dt = dtype_of(plan.accum_dtype)
@@ -91,17 +110,19 @@ def make_grad_step(model: Model):
             p.requires_grad_(True)
         try:
             for mb in _microbatches(batch, n_micro):
-                loss, _ = model.loss(params, mb)
+                loss, _ = model.loss(params, mb, rules)
                 loss.backward()
                 loss = loss.detach()
                 lsum = loss if lsum is None else lsum + loss
-                if n_micro == 1:
-                    continue
                 for n, p in named.items():
-                    if p.grad is not None and p.grad.dtype != acc_dt:
+                    if p.grad is None:
+                        continue
+                    if n_micro > 1 and p.grad.dtype != acc_dt:
                         g = p.grad.to(acc_dt)
-                        acc[n] = g if n not in acc else acc[n] + g
+                        acc[n] = pin(g if n not in acc else acc[n] + g, p)
                         p.grad = None
+                    elif rules is not None:
+                        p.grad = pin(p.grad, p)
         finally:
             grads = {}
             for n, p in named.items():
@@ -115,16 +136,25 @@ def make_grad_step(model: Model):
                     else acc_dt)
             elif n_micro > 1:
                 g.div_(n_micro)
+            if rules is not None and plan.fused_grad_reduce:
+                grads[n] = pin(grads[n], named[n])
         return grads, (lsum / n_micro if n_micro > 1 else lsum)
 
     return grads_and_loss
 
 
-def make_train_step(model: Model):
+def make_train_step(model: Model, rules=None):
+    """``train_step(params, opt_state, batch)``; under ``rules`` the step
+    on ``DTensor`` parameters and state (module docstring)."""
     cfg, plan = model.cfg, model.plan
-    grads_and_loss = make_grad_step(model)
+    grads_and_loss = make_grad_step(model, rules)
 
     def train_step(params, opt_state, batch):
+        from repro_torch.parallel.sharding import mixed_inputs
+        with mixed_inputs(params.embed):
+            return _step(params, opt_state, batch)
+
+    def _step(params, opt_state, batch):
         grads, loss = grads_and_loss(params, batch)
         grads = param_leaves(cfg, grads)
 

@@ -916,3 +916,73 @@ def test_measured_rung_refuses_a_context_larger_than_its_mesh(cuda,
         assert not rung.outputs
         m = rung.measure(MeasureContext(cfg, "card_test"), cfg.plan)
         assert m.ok and m.seconds > 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_dtensor_inputs_launch_the_kernels_through_local_map(cuda, dtype):
+    """On the one-card mesh, ``DTensor`` inputs reach each Function
+    through ``local_map``: the kernel launches (never the plain version),
+    once in the forward, and the outputs and the gradients equal the plain
+    tensors' call bit for bit."""
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.launch.mesh import host_mesh
+    rng = np.random.default_rng(22)
+    with host_mesh() as dm:
+        for name, kernel, fn, plain, args in _function_cases(rng, dtype):
+            args = [a.detach().requires_grad_() for a in args]
+            want = fn(*args)
+            wants = want if isinstance(want, tuple) else (want,)
+            cots = [torch.randn_like(o) for o in wants]
+            wgrads = torch.autograd.grad(wants, args, cots)
+            dargs = [DTensor.from_local(a.detach(), dm, [Replicate()] * 2)
+                     .requires_grad_() for a in args]
+            n0 = kernel.launches
+            got = fn(*dargs)
+            gots = got if isinstance(got, tuple) else (got,)
+            assert kernel.launches == n0 + 1, name
+            assert all(isinstance(o, DTensor) for o in gots), name
+            ggrads = torch.autograd.grad(
+                gots, dargs, [DTensor.from_local(c, dm, [Replicate()] * 2)
+                              for c in cots])
+            assert kernel.launches == n0 + 1, name
+            for a, b in zip(gots, wants):
+                assert torch.equal(a.to_local(), b), name
+            for a, b in zip(ggrads, wgrads):
+                assert torch.equal(a.to_local(), b), name
+
+
+def test_rules_train_step_on_the_host_mesh(cuda):
+    """One AdamW step of reduced qwen2-7b under the offload plan with
+    ``rules`` on the one-card mesh (parameters and state as Replicate
+    DTensors) equals the step without rules bit for bit, and launches
+    flash_attention and swiglu."""
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.parallel.param_sharding import distribute
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.train.step import make_opt_init, make_train_step
+    cfg = get_config("qwen2-7b", reduced=True)
+    plan = cfg.plan.replace(attn_impl="pallas", mlp_impl="pallas",
+                            fused_grad_reduce=True)
+    cfg = dataclasses.replace(cfg, plan=plan)
+    model = Model(cfg, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, 65)).astype(np.int32)).to(cuda)
+    batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+    def step(rules=None):
+        p = model.init(torch.Generator(device=cuda).manual_seed(0))
+        o = make_opt_init(model)(p)
+        if rules is not None:
+            p, o, _ = distribute(rules, p, o)
+        return make_train_step(model, rules)(p, o, batch)
+    p0, _, m0 = step()
+    with host_mesh() as dm:
+        n0 = (FA.KERNEL.launches, SG.KERNEL.launches)
+        p1, _, m1 = step(make_rules(cfg, dm, plan))
+        assert FA.KERNEL.launches > n0[0] and SG.KERNEL.launches > n0[1]
+        assert float(m1["loss"].full_tensor()) == float(m0["loss"])
+        assert float(m1["grad_norm"].full_tensor()) == \
+            float(m0["grad_norm"])
+        for (n, a), (_, b) in zip(p0.named_parameters(),
+                                  p1.named_parameters()):
+            assert torch.equal(a, b.full_tensor()), n

@@ -518,7 +518,9 @@ def test_measured_governor_needs_a_card_unless_told(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         PowerGovernor(_recon(cfg), plan=cfg.plan, verify_rung="measured")
     with pytest.raises(ValueError, match="unknown verify rung"):
-        PowerGovernor(_recon(cfg), plan=cfg.plan, verify_rung="compiled")
+        PowerGovernor(_recon(cfg), plan=cfg.plan, verify_rung="hlo")
+    # the compiled rung (the pod dry run) runs on the host: no card
+    PowerGovernor(_recon(cfg), plan=cfg.plan, verify_rung="compiled")
     recon = _recon(cfg)
     recon.verifier_factory = lambda: Verifier(
         cfg, SHAPE, backends={"measured": backends.MeasuredBackend(

@@ -53,7 +53,12 @@ def test_the_scan_sees_the_whole_port():
             "src/repro_torch/fleet/segment.py",
             "src/repro_torch/fleet/shard.py",
             "src/repro_torch/fleet/torch_backend.py",
-            "src/repro_torch/obs/flight.py"} <= names
+            "src/repro_torch/obs/flight.py",
+            "src/repro_torch/launch/dryrun.py",
+            "src/repro_torch/core/transfer.py",
+            "src/repro_torch/core/roofline.py",
+            "src/repro_torch/core/backends.py",
+            "src/repro_torch/core/adapt.py"} <= names
     assert _forbidden("jax.numpy") and _forbidden("repro.models")
     assert not _forbidden("repro_torch.models")
 
@@ -78,6 +83,23 @@ def test_serve_loop_without_a_device_needs_a_card(no_card):
         ServeLoop(model, params, batch_slots=1, max_seq=8)
     loop = ServeLoop(model, params, batch_slots=1, max_seq=8, device="cpu")
     assert loop.device.type == "cpu"
+
+
+#: reference modules whose counterpart has another name
+RENAMED = {"fleet/jax_backend.py": "fleet/torch_backend.py"}
+
+
+def test_every_reference_module_has_a_counterpart():
+    """The port does everything the JAX package does: each module of
+    ``src/repro`` has one in ``src/repro_torch`` (jax's booking plane as
+    the torch one)."""
+    ref = ROOT / "src" / "repro"
+    port = ROOT / "src" / "repro_torch"
+    missing = [p.relative_to(ref).as_posix() for p in sorted(ref.rglob("*.py"))
+               if not (port / RENAMED.get(p.relative_to(ref).as_posix(),
+                                          p.relative_to(ref).as_posix())
+                       ).is_file()]
+    assert not missing, missing
 
 
 def test_unsupported_devices_are_refused():

@@ -462,11 +462,12 @@ def test_analytic_oom_is_a_penalty():
 
 
 def test_registry_builds_every_rung_by_name():
-    assert set(backends.BACKENDS) == {"analytic", "measured", "replay"}
+    assert set(backends.BACKENDS) == {"analytic", "measured", "compiled",
+                                      "replay"}
     for name in backends.BACKENDS:
         assert backends.make_backend(name).name == name
     with pytest.raises(KeyError):
-        backends.make_backend("compiled")
+        backends.make_backend("hlo")
 
 
 def test_verifier_defaults_are_one_card():
