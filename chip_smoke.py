@@ -196,8 +196,11 @@ a non-zero exit and no result line:
               layers, one AdamW step at train_4k_b4 under the offload plan
               with fused_grad_reduce, with ``rules`` on
               ``make_host_mesh()`` (the one-rank NCCL group; parameters and
-              AdamW state as Replicate DTensors, the kernels through their
-              ``local_map`` route), its loss and gradient norm held to the
+              AdamW state as DTensors at the plan's placements, each shard
+              the whole on one rank; every layer kind through the
+              tensor-parallel regions of ``parallel.tp``, which must be
+              the route each kind ran, the kernels inside on the local
+              tensors), its loss and gradient norm held to the
               same step without rules from the same weights and batch (bit
               for bit, else the gap printed and held under 2^-8
               relative); (b) ``train.compress.compressed_psum`` on a CUDA
@@ -3023,6 +3026,8 @@ POD_LAYERS = 2
 POD_BUDGET_S = 45.0
 POD_SLICES = (64, 128, 256, 512)
 POD_REL = 2.0 ** -8
+#: the layer kinds the rules step must run on the tensor-parallel regions
+POD_KINDS = {"attn", "embed", "logits", "loss", "mlp"}
 
 
 def pod_step(cfg, plan, batch, rules=None):
@@ -3101,6 +3106,7 @@ def phase_pod(counters: dict, smi: str) -> dict:
     from repro_torch.launch.mesh import host_mesh
     from repro_torch.parallel.param_sharding import shardings_of
     from repro_torch.parallel.sharding import make_rules
+    from repro_torch.parallel.tp import record_routes
     from repro_torch.train import compress as C
     t0 = time.perf_counter()
     # DTensor's advice to flatten the mesh, once a redistribute: the (1, 1)
@@ -3127,8 +3133,14 @@ def phase_pod(counters: dict, smi: str) -> dict:
         for k in counters.values():
             k.launches = 0
         t1 = time.perf_counter()
-        params, loss1, gnorm1 = pod_step(cfg, plan, batch, rules)
+        with record_routes() as routes:
+            params, loss1, gnorm1 = pod_step(cfg, plan, batch, rules)
         out["step_s"] = (t_plain, time.perf_counter() - t1)
+        out["routes"] = dict(routes)
+        if set(routes) != POD_KINDS or set(routes.values()) != {"tp"}:
+            raise RuntimeError(f"pod: the rules step ran the routes "
+                               f"{routes}, want the tensor-parallel regions "
+                               f"for {sorted(POD_KINDS)}")
         out["launches"] = {name: k.launches for name, k in counters.items()}
         gaps = [abs(loss1 - loss0) / abs(loss0),
                 abs(gnorm1 - gnorm0) / abs(gnorm0)]
@@ -3144,7 +3156,8 @@ def phase_pod(counters: dict, smi: str) -> dict:
             + f"; launches in the rules step {json.dumps(out['launches'])}"
             f" (want {want} each of flash_attention and swiglu: "
             f"{POD_LAYERS} layers x {plan.microbatches} microbatches x "
-            f"forward and remat recompute), in the step without rules "
+            f"forward and remat recompute); routes {json.dumps(routes)}; "
+            f"in the step without rules "
             f"{json.dumps(out['plain_launches'])}; steps (init, step and "
             f"loss read) {out['step_s'][0]:.2f} s without rules, "
             f"{out['step_s'][1]:.2f} s with (mesh made after the first)")

@@ -622,10 +622,10 @@ class CompiledBackend:
     trace's duration/average/integral: the verification-machine trial, as
     the paper measures it.  The record's counters ride along — the FLOPs
     and the census as they are, with no trip-count correction (the dry
-    run unrolls every layer and microbatch), the census that of ZeRO-3
-    execution (the record's ``execution``, also in the trace's meta: the
-    model axis splits no product, so a ``use_tp`` gene changes only the
-    stored layout) — and a plan whose per-rank
+    run unrolls every layer and microbatch), the census that of the
+    route each layer kind ran (the record's ``execution``, also in the
+    trace's meta: tensor-parallel regions under a ``use_tp`` plan, ZeRO-3
+    without) — and a plan whose per-rank
     argument bytes exceed the card's ``hbm_bytes`` penalties out.
 
     Every successful trial persists its trace next to the record

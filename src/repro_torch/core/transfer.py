@@ -74,6 +74,7 @@ class CollectiveOp:
     kind: str
     payload_bytes: int
     shape_sig: str
+    group: str = ""             # the process group's name, where recorded
 
 
 def tensor_sig(t) -> str:
@@ -82,7 +83,8 @@ def tensor_sig(t) -> str:
     return f"{_TORCH_DTYPES[name]}[{','.join(str(d) for d in t.shape)}]"
 
 
-def collective_op(kind: str, results, operands) -> CollectiveOp:
+def collective_op(kind: str, results, operands,
+                  group: str = "") -> CollectiveOp:
     """One collective from its result and operand tensors, by the
     reference's rule: the payload is the larger side's bytes, twice for an
     all-reduce; the signature is the result's shapes."""
@@ -91,7 +93,7 @@ def collective_op(kind: str, results, operands) -> CollectiveOp:
     payload = max(shape_bytes(res), shape_bytes(ops))
     if kind == "all-reduce":
         payload *= 2                         # reduce + broadcast phases
-    return CollectiveOp(kind, payload, res or "?")
+    return CollectiveOp(kind, payload, res or "?", group)
 
 
 def _tensors(x) -> list:
@@ -110,7 +112,8 @@ class CollectiveRecorder(TorchDispatchMode):
     own dispatch runs and its redistributions come back here as the
     collectives they launch on local tensors.  A collective with no kind
     in the reference's five (a broadcast) raises: the census would drop
-    it."""
+    it.  Each op keeps its process group's name (``group``), which says
+    which mesh axis it ran over."""
 
     def __init__(self):
         super().__init__()
@@ -139,8 +142,10 @@ class CollectiveRecorder(TorchDispatchMode):
             raise NotImplementedError(
                 f"collective {ns}.{name} has no kind in the census "
                 f"{COLLECTIVES}")
+        # the group's name is the op's last string argument
+        group = next((a for a in reversed(args) if isinstance(a, str)), "")
         self.ops.append(collective_op(kind, _tensors(out),
-                                      _tensors(args[0])))
+                                      _tensors(args[0]), group))
 
 
 def census(ops: list[CollectiveOp]) -> dict:

@@ -14,13 +14,15 @@ CPU), the backward differentiates the plain version rematerialized from
 the saved inputs — so the 'pallas' destination trains as well as it
 serves.  ``mriq`` has no backward, as in the reference.
 
-``DTensor`` inputs (parameters distributed over a ``DeviceMesh``) take the
-route GSPMD takes around the reference's ``pallas_call``, which it cannot
-partition: every input is redistributed to ``Replicate()`` (a ``Partial``
-is reduced, never read as it is) and the wrapper runs on the local, whole
-tensors through ``local_map`` — the kernel on ``cuda``, the plain version
-on the CPU or the meta device — its outputs replicated.  The autograd
-Functions run inside, so the backward takes the same route.
+The model's layers on a mesh call the wrappers on local tensors, inside
+their tensor-parallel regions (``parallel.tp``).  A caller that hands a
+wrapper ``DTensor`` inputs gets the route GSPMD takes around the
+reference's ``pallas_call``, which it cannot partition: every input is
+redistributed to ``Replicate()`` (a ``Partial`` is reduced, never read as
+it is) and the wrapper runs on the local, whole tensors through
+``local_map`` — the kernel on ``cuda``, the plain version on the CPU or
+the meta device — its outputs replicated.  The autograd Functions run
+inside, so the backward takes the same route.
 """
 from __future__ import annotations
 

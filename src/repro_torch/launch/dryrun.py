@@ -13,32 +13,32 @@ collective returns at once, nothing is sent) in this one process:
            (``parallel.param_sharding.distribute``);
   trace    one call of the train, prefill or decode step on them, under
            ``core.transfer.CollectiveRecorder`` (every collective DTensor
-           launches, with its payload) and
-           ``torch.utils.flop_counter.FlopCounterMode``;
+           launches, with its payload) and a ``FlopCounterMode``
+           (``global_flops``);
   analyze  the census, the batching report and the per-rank bytes.
 
 The record keeps the reference's keys where they mean the same thing:
 ``status``, ``n_chips``, ``collectives``, ``batching``, ``model_flops``,
 ``plan`` and ``memory.argument_size_in_bytes`` — per rank, the bytes of
 rank 0's local shards of the step's arguments (with even shards, every
-rank's).  ``flops`` is whole-program and global: the counter sees each op
-on its ``DTensor`` operands, at their global shapes, once (a kernel's
-plain version once, on the whole tensors ``local_map`` gives it).  The
+rank's).  ``flops`` is whole-program and global (below).  The
 port unrolls its layers and microbatches, so no count here is "a loop
 body once", and nothing downstream multiplies it by a trip count.  No
 temporary or peak memory is recorded: the meta device allocates nothing
 to measure.
 
-Layers run on their gathered operands (``parallel.sharding.
-layer_operands``), so the census holds the all-gathers of the weights and
-caches, the gradients' reductions and the constraints' redistributions.
-That is ZeRO-3 execution: the model axis splits no product, whatever the
-plan's ``use_tp``.  Every OK record says so under ``execution``
-(``EXECUTION``); its census and the roofline read from it describe this
-execution, not the reference's tensor-parallel program, and are not
-comparable with the reference's.
-A cell whose op has no DTensor sharding strategy ends ``FAIL`` with the
-op's name: nothing is caught and re-run replicated.  The fake group is
+Under a ``use_tp`` plan every layer runs on its shards (``parallel.tp``):
+each product split over the model axis, weights gathered over the batch
+axes only, the collectives over ``model`` on activations and small
+statistics; a plan without it folds ``model`` into the batch axes and its
+layers run on their gathered operands (ZeRO-3).  Every OK record says
+which route each layer kind ran under ``execution``
+(``parallel.tp.describe_routes``).  A region runs on rank 0's local
+tensors, so the counter sees its ops at local shapes: ``flops`` weighs
+each by the ranks whose work it stands for (``global_flops``), and counts
+each op on ``DTensor``s once at its global shapes.  A cell whose op has
+no DTensor sharding strategy, or whose layout a region cannot split, ends
+``FAIL`` with the error: nothing is caught and re-run replicated.  The fake group is
 destroyed when a cell ends.
 
 This is also the *compiled measurement rung*'s child process
@@ -73,11 +73,35 @@ ART = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun"
 WORLD = {False: 256, True: 512}
 
 
-#: how an OK record's step ran; ``core.roofline`` and the compiled rung
-#: carry it beside the numbers read from the record
-EXECUTION = ("zero3: each layer on its operands gathered to Replicate, no "
-             "tensor-parallel split of a product; census and roofline not "
-             "comparable with the reference's")
+def global_flops():
+    """A ``FlopCounterMode`` whose total is the whole program's: an op on
+    ``DTensor``s counts once, at its global shapes (the counter sees it
+    before DTensor splits it); an op of a tensor-parallel region's body,
+    which runs on rank 0's local tensors, counts as many times as the
+    ranks whose shares of the work it stands for (``parallel.tp.
+    flop_weight``, forward and backward), so replicated work counts
+    once, as a ``DTensor`` op's does."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._pytree import tree_leaves
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.parallel.tp import flop_weight
+
+    class GlobalFlops(FlopCounterMode):
+        extra = 0.0
+
+        def _count_flops(self, func_packet, out, args, kwargs):
+            w = flop_weight()
+            if w != 1.0 and func_packet in self.flop_registry and not any(
+                    isinstance(a, DTensor)
+                    for a in tree_leaves((args, kwargs))):
+                self.extra += (w - 1) * self.flop_registry[func_packet](
+                    *args, **kwargs, out_val=out)
+            return super()._count_flops(func_packet, out, args, kwargs)
+
+        def total(self) -> float:
+            return self.get_total_flops() + self.extra
+    return GlobalFlops(display=False)
 
 
 def model_flops(cfg, shape) -> float:
@@ -238,13 +262,12 @@ def build_step(arch: str, shape_name: str, mesh, plan=None):
 def run_cell(arch: str, shape_name: str, multi_pod: bool,
              force: bool = False, plan=None, tag: str = "",
              art: Optional[Path] = None) -> dict:
-    from torch.utils.flop_counter import FlopCounterMode
-
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.core.backends import load_record
     from repro_torch.core.transfer import (CollectiveRecorder,
                                            batching_report, census)
     from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel import tp
 
     art = ART if art is None else Path(art)
     mesh_name = "pod2x16x16" if multi_pod else "pod16x16"
@@ -283,8 +306,9 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                 # the flop counter innermost: it sees each op on its
                 # DTensors (global shapes) before DTensor runs it, and the
                 # recorder the collectives DTensor then launches
-                with CollectiveRecorder() as recorder, \
-                        FlopCounterMode(display=False) as flop_counter:
+                with tp.weigh_flops(), tp.record_routes() as routes, \
+                        CollectiveRecorder() as recorder, \
+                        global_flops() as flop_counter:
                     out = fn(*args)
             with clock.stage("analyze"):
                 ops = recorder.ops
@@ -298,7 +322,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
             build_s=round(stage_s.get("build", 0.0), 2),
             trace_s=round(stage_s.get("trace", 0.0), 2),
             n_chips=n_chips,
-            flops=float(flop_counter.get_total_flops()),
+            flops=float(flop_counter.total()),
             collectives=census(ops),
             batching={"fusible_ops": brep.fusible_ops,
                       "fusible_bytes": brep.fusible_bytes,
@@ -310,7 +334,7 @@ def run_cell(arch: str, shape_name: str, multi_pod: bool,
                            "meta device allocates nothing)"},
             model_flops=model_flops(cfg2, shape),
             plan=cfg2.plan.describe(),
-            execution=EXECUTION,
+            execution=tp.describe_routes(routes),
         )
     except Exception as e:  # a missing strategy / a bad layout: recorded
         rec.update(status="FAIL", error=f"{type(e).__name__}: {e}",

@@ -215,6 +215,18 @@ def run_attention(params, x, cfg: ArchConfig, plan: PlanConfig, positions,
     batch.
     """
     q, k, v = _qkv(params, x, cfg, plan, positions)
+    o = attend(q, k, v, cfg, plan, positions, cache, decode, window)
+    y = torch.einsum("bshk,hkd->bsd", o, params["wo"].to(o.dtype))
+    return y, cache
+
+
+def attend(q, k, v, cfg: ArchConfig, plan: PlanConfig, positions,
+           cache=None, decode=False, window=0):
+    """Attention of post-RoPE ``q`` (B,S,Hq,D) over ``k``, ``v``
+    (B,S,Hkv,D), through the cache when one is given (``run_attention``):
+    decode writes the one new position and attends over the cache; the
+    forward pass and prefill attend over ``k`` and ``v``, and prefill then
+    keeps their last T positions in the cache.  Returns o (B,S,Hq,D)."""
     causal = not cfg.is_encoder
     int8_cache = cache is not None and cache["k"].dtype == torch.int8
 
@@ -242,41 +254,41 @@ def run_attention(params, x, cfg: ArchConfig, plan: PlanConfig, positions,
         kpos_m = torch.where(valid, kpos, pos + t + 10)  # fails causal rule
         qpos = pos.expand(q.shape[1])
         if plan.attn_impl == "xla" or t <= plan.attn_chunk:
-            o = attention_naive(q, kk, vv, qpos, kpos_m, True, window)
-        else:
-            o = attention_chunked(q, kk, vv, qpos, kpos_m, True, window,
-                                  plan.attn_chunk)
+            return attention_naive(q, kk, vv, qpos, kpos_m, True, window)
+        return attention_chunked(q, kk, vv, qpos, kpos_m, True, window,
+                                 plan.attn_chunk)
+    kpos = qpos = positions
+    impl = plan.attn_impl
+    if impl == "pallas":
+        from repro_torch.kernels import ops as kops
+        o = kops.flash_attention(q, k, v, causal=causal, window=window)
+    elif impl == "xla_chunked" and q.shape[1] > plan.attn_chunk:
+        o = attention_chunked(q, k, v, qpos, kpos, causal, window,
+                              plan.attn_chunk)
     else:
-        kpos = qpos = positions
-        impl = plan.attn_impl
-        if impl == "pallas":
-            from repro_torch.kernels import ops as kops
-            o = kops.flash_attention(q, k, v, causal=causal, window=window)
-        elif impl == "xla_chunked" and x.shape[1] > plan.attn_chunk:
-            o = attention_chunked(q, k, v, qpos, kpos, causal, window,
-                                  plan.attn_chunk)
-        else:
-            o = attention_naive(q, k, v, qpos, kpos, causal, window)
-        if cache is not None:  # prefill: keep the last T positions
-            t = cache["k"].shape[1]
-            s = k.shape[1]
-            ktail, vtail = k[:, -t:], v[:, -t:]
-            tailpos = torch.arange(max(s - t, 0), s, dtype=torch.int32,
-                                   device=k.device)
-            slots = (tailpos % t).long()
-            if int8_cache:
-                kq, ks = _kv_quant(ktail)
-                vq, vs = _kv_quant(vtail)
-                rows = {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
-            else:
-                rows = {"k": ktail.to(cache["k"].dtype),
-                        "v": vtail.to(cache["v"].dtype)}
-            rows["kpos"] = tailpos
-            for name, r in rows.items():
-                _write_rows(cache[name], 0 if name == "kpos" else 1, slots, r)
+        o = attention_naive(q, k, v, qpos, kpos, causal, window)
+    if cache is not None:  # prefill: keep the last T positions
+        t = cache["k"].shape[1]
+        s = k.shape[1]
+        tailpos = torch.arange(max(s - t, 0), s, dtype=torch.int32,
+                               device=k.device)
+        rows = cache_rows(k[:, -t:], v[:, -t:], int8_cache, cache)
+        rows["kpos"] = tailpos
+        slots = (tailpos % t).long()
+        for name, r in rows.items():
+            _write_rows(cache[name], 0 if name == "kpos" else 1, slots, r)
+    return o
 
-    y = torch.einsum("bshk,hkd->bsd", o, params["wo"].to(o.dtype))
-    return y, cache
+
+def cache_rows(k, v, int8_cache: bool, cache) -> dict:
+    """The cache entries' new rows for post-RoPE ``k``, ``v`` (B,S,H,D):
+    quantized with their scales for an int8 cache, else cast to the
+    cache's dtype."""
+    if int8_cache:
+        kq, ks = _kv_quant(k)
+        vq, vs = _kv_quant(v)
+        return {"k": kq, "v": vq, "k_scale": ks, "v_scale": vs}
+    return {"k": k.to(cache["k"].dtype), "v": v.to(cache["v"].dtype)}
 
 
 # ---------------------------------------------------------------------------
@@ -287,13 +299,21 @@ def run_attention(params, x, cfg: ArchConfig, plan: PlanConfig, positions,
 def run_mlp(params, x, cfg: ArchConfig, plan: PlanConfig):
     """SwiGLU MLP, or for ``act="gelu"`` the GELU MLP with biases (tanh
     approximation, ``jax.nn.gelu``'s default)."""
+    y = mlp_products(params, x, cfg, plan)
+    if cfg.act == "gelu":
+        y = y + params["bo"].to(cdtype(plan))
+    return y
+
+
+def mlp_products(params, x, cfg: ArchConfig, plan: PlanConfig):
+    """The MLP without its output bias ``bo`` (the GELU MLP's; added once
+    after a tensor-parallel reduction)."""
     dt = cdtype(plan)
     if cfg.act == "gelu":
         h = torch.einsum("bsd,df->bsf", x, params["wi"].to(dt)) \
             + params["bi"].to(dt)
         h = F.gelu(h, approximate="tanh")
-        return torch.einsum("bsf,fd->bsd", h, params["wo"].to(dt)) \
-            + params["bo"].to(dt)
+        return torch.einsum("bsf,fd->bsd", h, params["wo"].to(dt))
     if plan.mlp_impl == "pallas":
         from repro_torch.kernels import ops as kops
         return kops.fused_swiglu(x, params["wi"].to(dt), params["wg"].to(dt),
@@ -314,13 +334,22 @@ def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
 
 def moe_route(params, xt, cfg: ArchConfig, plan: PlanConfig):
     """The router over tokens ``xt`` (t,d): its softmax in f32 (t,e), and
-    each token's top k experts (t,k) with their gates renormalised.  Ties
-    go to the lower expert, as ``lax.top_k`` breaks them (a stable
+    each token's top k experts (t,k) with their gates renormalised."""
+    return moe_gates(moe_logits(params["router"], xt, plan), cfg.moe.top_k)
+
+
+def moe_logits(router, xt, plan: PlanConfig):
+    """The router's logits (t,e) in f32."""
+    return (xt @ router.to(cdtype(plan))).float()
+
+
+def moe_gates(logits, top_k: int):
+    """(softmax (t,e), gates (t,k), experts (t,k)) of f32 router logits.
+    Ties go to the lower expert, as ``lax.top_k`` breaks them (a stable
     descending sort)."""
-    logits = (xt @ params["router"].to(cdtype(plan))).float()
     probs = torch.softmax(logits, dim=-1)
     gate, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
-    gate, idx = gate[:, :cfg.moe.top_k], idx[:, :cfg.moe.top_k]
+    gate, idx = gate[:, :top_k], idx[:, :top_k]
     gate = gate / torch.clamp(gate.sum(-1, keepdim=True), min=1e-9)
     return probs, gate, idx
 

@@ -19,7 +19,8 @@ import torch
 from repro_torch.configs.base import ArchConfig, PlanConfig, ShapeSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
-from repro_torch.parallel.sharding import batch_only
+from repro_torch.parallel import tp
+from repro_torch.parallel.sharding import batch_only, is_dtensor
 
 
 class InputSpec(NamedTuple):
@@ -30,10 +31,13 @@ class InputSpec(NamedTuple):
 
 def cross_entropy(logits, targets):
     """Mean next-token CE in f32. logits (B,S,V), targets (B,S).  The
-    target's logit is a gather (one card: no vocab-sharded logits to keep
-    sharded, which the reference's iota-compare is for)."""
+    log-sum-exp is spelled out, its max a constant (the gradient is the
+    softmax's either way), so that a vocab-sharded twin
+    (``parallel.tp.cross_entropy``) runs the same ops on each shard; the
+    target's logit is a gather."""
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
+    m = logits.amax(-1, keepdim=True).detach()
+    lse = torch.log(torch.exp(logits - m).sum(-1)) + m[..., 0]
     ll = torch.gather(logits, -1, targets.long().unsqueeze(-1))[..., 0]
     return (lse - ll).mean()
 
@@ -77,10 +81,13 @@ class Model:
         ``batch["targets"]`` plus 0.01 x the summed MoE aux loss."""
         logits, _, aux = T.forward(params, batch, self.cfg, self.plan,
                                    rules=rules)
-        if rules is not None:
-            # DTensor logits: the target's gather reads whole vocab rows
-            logits = batch_only(logits, rules)
-        ce = cross_entropy(logits, batch["targets"])
+        if rules is not None and is_dtensor(logits) and tp.enabled(rules):
+            ce = tp.cross_entropy(logits, batch["targets"], rules)
+        else:
+            if rules is not None:
+                # DTensor logits: the target's gather reads whole vocab rows
+                logits = batch_only(logits, rules)
+            ce = cross_entropy(logits, batch["targets"])
         loss = ce + 0.01 * aux
         return loss, {"ce": ce, "aux": aux}
 

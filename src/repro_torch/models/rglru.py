@@ -58,15 +58,18 @@ def lru_lambda_(p: torch.Tensor, generator: torch.Generator) -> None:
     p.copy_(torch.log(torch.exp(-torch.log(u) / (2 * RG_C)) - 1.0))
 
 
-def rglru_gates(params, x):
+def rglru_gates(params, x, x_cols=None):
     """x (B,S,W) -> (log_a, b), both f32: h_t = exp(log_a_t) h + b_t.  The
-    gate matmuls run in f32, as in the reference."""
+    gate matmuls run in f32, as in the reference.  ``x_cols`` is the
+    columns of ``x`` that the gate weights' columns gate (a
+    tensor-parallel rank's slice of the width; ``x`` itself by default)."""
     x32 = x.float()
+    xc = x32 if x_cols is None else x_cols.float()
     r = torch.sigmoid(x32 @ params["w_a"].float() + params["b_a"].float())
     i = torch.sigmoid(x32 @ params["w_x"].float() + params["b_x"].float())
     log_a = -RG_C * F.softplus(params["lam"].float()) * r
     b = torch.sqrt(torch.clamp(1.0 - torch.exp(2.0 * log_a), min=1e-12)) \
-        * (i * x32)
+        * (i * xc)
     return log_a, b
 
 

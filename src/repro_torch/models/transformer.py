@@ -20,10 +20,13 @@ seq_sharded, act_embed), and the logits to (batch, -, vocab), at the
 reference's four points.  A plain tensor lies on no mesh and passes
 through unchanged, so on one card, or with ``rules=None``, every output is
 what it is without them.  Parameters that are ``DTensor``s
-(``parallel.param_sharding.distribute``) are gathered where they are used:
-the embedding table and the output projection once, each layer's weights
-and cache around the layer (``parallel.sharding.layer_operands``); plain
-inputs beside them (tokens, positions, masks) count as replicated.
+(``parallel.param_sharding.distribute``) run on their shards under
+tensor-parallel rules (``parallel.tp``: the embedding, every layer and the
+logits, each product split over the model axis); under rules that split
+no product they are gathered where they are used (the embedding table and
+the output projection once, each layer's weights and cache around the
+layer, ``parallel.sharding.layer_operands``); plain inputs beside them
+(tokens, positions, masks) count as replicated.
 """
 from __future__ import annotations
 
@@ -37,6 +40,7 @@ from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
 from repro_torch.models import ssm as S
+from repro_torch.parallel import tp
 from repro_torch.parallel.sharding import (batch_only, constrain,
                                            is_dtensor, layer_operands,
                                            mixed_inputs, replicate,
@@ -234,9 +238,17 @@ def apply_layer(p: Layer, x, cfg: ArchConfig, plan: PlanConfig, positions,
                 cache, decode: bool, rules=None):
     """One layer: returns (x, cache, aux), aux the MoE layer's load-balance
     loss (0 elsewhere), as the reference's ``apply_layer``.  On a
-    ``DTensor`` stream the layer runs on its gathered operands and writes
-    its cache back into the cache's own placements."""
+    ``DTensor`` stream the layer runs on its shards under tensor-parallel
+    rules (``parallel.tp``); under rules without a model-axis split it
+    runs on its gathered operands and writes its cache back into the
+    cache's own placements."""
     if rules is not None and is_dtensor(x):
+        if tp.enabled(rules):
+            return tp.apply_layer(p, x, cfg, plan, positions, cache, decode,
+                                  attn_window(cfg))
+        for kind in (p.kind,) + tuple(b for b in ("mlp", "moe")
+                                      if hasattr(p, b)):
+            tp.note(kind, "zero3")
         view, xl, local = layer_operands(p, x, cache, rules)
         x, local, aux = _apply_layer(view, xl, cfg, plan, positions, local,
                                      decode, rules)
@@ -323,7 +335,8 @@ def embed_inputs(params: Transformer, batch: dict, cfg: ArchConfig,
     the embeddings as a one-hot product, which keeps a vocab-sharded table
     sharded; its numbers are the gather's, which the port's tables (plain
     tensors) keep."""
-    del rules
+    if rules is not None and is_dtensor(params.embed) and tp.enabled(rules):
+        return tp.embed(params, batch, cfg, plan, rules)
     dt = L.cdtype(plan)
     if cfg.frontend == "audio_frames":
         return batch["features"].to(dt) @ replicate(params.frontend).to(dt)
@@ -403,6 +416,8 @@ def _forward(params: Transformer, batch: dict, cfg: ArchConfig,
                               decode, rules)
         aux = aux + a
     h = L.apply_norm(params.final_norm, h, cfg)
+    if rules is not None and is_dtensor(h) and tp.enabled(rules):
+        return tp.logits(params, h, cfg, rules), cache, aux
     wout = params.embed.T if cfg.tie_embeddings else params.lm_head
     if is_dtensor(wout):
         h, wout = batch_only(h, rules), replicate(wout)

@@ -17,13 +17,13 @@ one-axis tuple is the name).  An empty spec replicates every dim.
 ``constrain`` redistributes a ``DTensor`` to them.
 
 Parameters distributed as DTensors (``param_sharding.distribute``) are
-stored at their specs' placements and gathered where a layer uses them
-(``layer_operands``): the layer's weights are redistributed to
-``Replicate()`` and its input and cache to their batch placements only, so
-every op inside a layer works on batch-sharded activations and whole
-weights, and its gradients reduce back onto the stored placements.  This
-is ZeRO-3 execution of the stored layout; the model axis holds weights
-and caches but does not split a layer's products.
+stored at their specs' placements.  Under a plan with ``use_tp`` a layer
+runs on its shards (``parallel.tp``): the model axis splits its products.
+A plan without it folds the model axis into the batch axes, and its
+layers run on their gathered operands (``layer_operands``): the weights
+redistributed to ``Replicate()``, the input and cache to their batch
+placements only, the gradients reduced back onto the stored placements —
+ZeRO-3, that plan's own execution.
 
 Mesh axes:
   single-pod   (data=16, model=16)
@@ -292,8 +292,9 @@ LAYER_BLOCKS = ("norm1", "mixer", "norm2", "mlp", "moe")
 
 
 def layer_operands(p, x, cache, rules: ShardingRules):
-    """What one layer computes on when its parameters are ``DTensor``s: a
-    view of the layer with every weight replicated, the input ``x`` with
+    """What one layer computes on when its parameters are ``DTensor``s and
+    the rules split no product (a plan without ``use_tp``): a view of the
+    layer with every weight replicated, the input ``x`` with
     only its batch dim sharded, and the cache's entries likewise (``kpos``
     replicated).  Returns ``(layer, x, cache)``; ``write_back`` stores the
     cache that the layer updated into the original's placements."""
