@@ -26,8 +26,9 @@ a non-zero exit and no result line:
               for bit; its SFU floor on a log line; flash_attention also at
               recurrentgemma-9b's D=256 with its 2048 window; ssd in bf16
               and f32 at mamba2-1.3b's prefill (S 512, chunk 256) and
-              forward (S 520, chunk 130), also against the token-by-token
-              recurrence; rglru at recurrentgemma-9b's prefill and forward
+              forward (S 520, chunk 130), and in bf16 at its train
+              microbatch (1 x 4096, chunk 256), also against the
+              token-by-token recurrence; rglru at recurrentgemma-9b's prefill and forward
               S; ssd and rglru launched twice and held bit for bit); plain
               and library times from CUDA events, the kernel's from a CUDA
               graph of its launches replayed (the host's launch cost does
@@ -808,30 +809,36 @@ def swiglu_designs() -> dict:
     return out
 
 
-#: the SSD shapes: mamba2-1.3b's prefill (2 x 512 tokens, chunk 256) and
-#: forward (2 x 520, chunk _blk(520, 256) = 130), 64 heads of 64, state 128
-SSD_SHAPE = dict(b=2, h=64, p=64, n=128)
-SSD_CASES = {"": (torch.bfloat16, 512, 256), "forward": (torch.bfloat16, 520, 130),
-             "f32": (torch.float32, 512, 256),
-             "f32_forward": (torch.float32, 520, 130)}
+#: the SSD shapes (batch, tokens, chunk): mamba2-1.3b's prefill (2 x 512,
+#: chunk 256), forward (2 x 520, chunk _blk(520, 256) = 130) and train
+#: microbatch (1 x 4096, chunk 256: 16 chunks carry the state), 64 heads of
+#: 64, state 128
+SSD_SHAPE = dict(h=64, p=64, n=128)
+SSD_CASES = {"": (torch.bfloat16, 2, 512, 256),
+             "forward": (torch.bfloat16, 2, 520, 130),
+             "train": (torch.bfloat16, 1, 4096, 256),
+             "f32": (torch.float32, 2, 512, 256),
+             "f32_forward": (torch.float32, 2, 520, 130)}
 SSD_TOL_TEXT = {
     torch.float32: "atol 1e-4 x max|plain| + rtol 1e-4, vs the plain version",
-    torch.bfloat16: "derived (ref.ssd_bf16_tolerance): 3 x 2^-8 Y_abs (y), "
-                    "2^-8 S_abs (state), + 1e-4 max|plain| + 2^-8 |plain|, "
-                    "vs the plain version in f32"}
+    torch.bfloat16: "ref.ssd_bf16_tolerance: y's own rounding 2^-8 |plain| "
+                    "+ the splits' 2 u^2 (1 + u^2) Y_abs (y), u^2 (1 + u^2) "
+                    "S_abs (state), u = 2^-8, + 1e-4 (max|plain| + "
+                    "|plain|), vs the plain version in f32"}
 SSD_DESIGN = {
     torch.bfloat16: "scores C B^T once per chunk (mma.sync m16n8k16), chunk "
                     "states x^T B' (mma.sync), states passed in order, "
                     "64-row query tiles: W' in registers into W' x and "
-                    "C S^T (mma.sync), x by a 2-stage cp.async ring",
+                    "C S^T (mma.sync), x by a 2-stage cp.async ring; B', "
+                    "S and W' enter their products as bf16 hi + lo",
     torch.float32: "the same passes on the CUDA cores, 4x4 register patches "
                    "from float4 rows of shared tiles"}
 
 
-def ssd_inputs(seed: int, dtype, s: int, dt_shift: float = 0.0):
+def ssd_inputs(seed: int, dtype, b: int, s: int, dt_shift: float = 0.0):
     """Inputs as mamba2's prefill gives them: x = silu(.), dt = softplus(.)
     (shifted down to make the decay slow), A = -exp(0.2 N(0,1))."""
-    b, h, p, n = (SSD_SHAPE[k] for k in "bhpn")
+    h, p, n = (SSD_SHAPE[k] for k in "hpn")
     g = torch.Generator(device="cuda").manual_seed(seed)
 
     def randn(*shape):
@@ -844,7 +851,7 @@ def ssd_inputs(seed: int, dtype, s: int, dt_shift: float = 0.0):
 
 def check_ssd(name: str, got, want, args, q: int) -> float:
     """y against y, state against state: f32 at atol 1e-4 x max|plain| +
-    rtol 1e-4, bf16 at the derived bound of ``ref.ssd_bf16_tolerance``."""
+    rtol 1e-4, bf16 at ``ref.ssd_bf16_tolerance``."""
     from repro_torch.kernels import ref
     if got[0].dtype == torch.bfloat16:
         bounds = ref.ssd_bf16_tolerance(*args, q, want)
@@ -881,20 +888,20 @@ def assert_repeats(name: str, fn) -> None:
             raise RuntimeError(f"{name}: two launches differ")
 
 
-def ssd_case(dtype, s: int, q: int) -> dict:
+def ssd_case(dtype, b: int, s: int, q: int) -> dict:
     from repro_torch.kernels import ref, ssd as K
-    args = ssd_inputs(4, dtype, s)
+    args = ssd_inputs(4, dtype, b, s)
     x, dt, A, Bm, Cm = args
     f32 = (x.float(), dt, A, Bm.float(), Cm.float())
     got = K.ssd_cuda(*args, q)
-    label = f"ssd {str(dtype).split('.')[-1]} S={s} chunk {q}"
+    label = f"ssd {str(dtype).split('.')[-1]} B={b} S={s} chunk {q}"
     err = check_ssd(f"{label} vs plain", got, ref.ssd_ref(*f32, q), args, q)
     # the token-by-token recurrence holds the chunk math where the JAX
     # reference is NaN (chunk 256: cum spans far past 88)
     err_rec = check_ssd(f"{label} vs recurrence", got,
                         ref.ssd_scan_ref(*f32), args, q)
     assert_repeats(label, lambda: K.ssd_cuda(*args, q))
-    b, h, p, n = (SSD_SHAPE[k] for k in "bhpn")
+    h, p, n = (SSD_SHAPE[k] for k in "hpn")
     peak = PEAK_BF16 if dtype == torch.bfloat16 else PEAK_F32
     flops, nbytes = ssd_work(b, s, h, p, n, q, x.element_size())
     return {"max_abs_err": err, "tol": SSD_TOL_TEXT[dtype],
@@ -910,15 +917,15 @@ def ssd_case(dtype, s: int, q: int) -> dict:
 
 def kernel_ssd(rows: dict) -> None:
     from repro_torch.kernels import ref, ssd as K
-    for label, (dtype, s, q) in SSD_CASES.items():
-        row = ssd_case(dtype, s, q)
+    for label, (dtype, b, s, q) in SSD_CASES.items():
+        row = ssd_case(dtype, b, s, q)
         if label:
             rows["ssd"][label] = row
         else:
             rows["ssd"] = row
     # with dt small enough that the state carries across tiles and chunks,
     # the f32 kernel against the recurrence
-    slow = ssd_inputs(5, torch.float32, 512, dt_shift=-4.0)
+    slow = ssd_inputs(5, torch.float32, 2, 512, dt_shift=-4.0)
     rows["ssd"]["slow_decay_f32_max_abs_err"] = check_ssd(
         "ssd f32 slow decay vs recurrence", K.ssd_cuda(*slow, 256),
         ref.ssd_scan_ref(*slow), slow, 256)

@@ -12,12 +12,15 @@ DIR holds the earlier version's ``csrc`` (``ssd.cu``, ``rglru.cu``,
 
 Each earlier source is built with ``kernels/_build.py``'s flags into
 ``DIR/build`` and bound with ctypes at its own launcher's arguments: ssd's
-as they were before its scratch arguments came (x, dt, A, B, C, y, state,
-B, S, H, P, N, Q, dtype, stream), rglru's and mriq's as they are.  ``--only`` names the
-kernels to compare, since an earlier csrc serves some of them only.  The current version runs through
-its wrapper.  At each of the main path's shapes (mamba2-1.3b's prefill and
-forward, in bf16 and f32; recurrentgemma-9b's prefill and forward; MRI-Q at
-the paper's N = 64^3, M = 3072) the two are timed earlier, current,
+with its scratch arguments (x, dt, A, B, C, y, state, ws_states, ws_enter,
+ws_cum, ws_gram, B, S, H, P, N, Q, dtype, stream; the scratch laid out by
+the current ``ssd.scratch_ends``, whose f32-sized ws_enter also holds an
+earlier bf16 one), rglru's and mriq's as they are.  ``--only`` names the
+kernels to compare, since an earlier csrc serves some of them only.  The
+current version runs through its wrapper.  At each of the main path's
+shapes (mamba2-1.3b's prefill and forward, in bf16 and f32, and its train
+microbatch, 1 x 4096 in bf16; recurrentgemma-9b's prefill and forward;
+MRI-Q at the paper's N = 64^3, M = 3072) the two are timed earlier, current,
 current, earlier (the mean of ``reps`` calls captured in a CUDA graph and
 replayed, CUDA events: the card's time without the host's launch cost),
 and their outputs compared.  For mriq it then sweeps the current source's
@@ -28,8 +31,9 @@ variant is timed twice (the variants in order, then in reverse) and held to
 the plain version at the kernel's tolerance.
 Prints the card's name and power limit and one JSON line per shape or
 variant; with ``--out`` also writes them all to FILE as JSON.
-``--profile`` adds, for the current ssd at each shape, each of its kernels'
-mean device time from ``torch.profiler`` over ``reps`` calls.
+``--profile`` adds, for the earlier and the current ssd at each shape, each
+of its kernels' mean device time from ``torch.profiler`` over ``reps``
+calls.
 """
 from __future__ import annotations
 
@@ -129,9 +133,9 @@ def kernel_times(fn, reps: int) -> dict:
             if e.device_type == torch.autograd.DeviceType.CUDA}
 
 
-def ssd_case(old_fn, dtype, s: int, chunk: int, reps: int,
+def ssd_case(old_fn, dtype, b: int, s: int, chunk: int, reps: int,
              profile: bool = False) -> dict:
-    b, h, p, n = 2, 64, 64, 128
+    h, p, n = 64, 64, 128
     g = torch.Generator(device="cuda").manual_seed(s)
 
     def randn(*shape):
@@ -143,13 +147,16 @@ def ssd_case(old_fn, dtype, s: int, chunk: int, reps: int,
     y_old = torch.empty_like(x)
     st_old = torch.empty((b, h, p, n), device="cuda")
     code = SD.DTYPES[dtype]
-    old_fn.argtypes = [c_ptr] * 7 + [c_int] * 7 + [c_ptr]
+    old_fn.argtypes = [c_ptr] * 11 + [c_int] * 7 + [c_ptr]
+    ends = SD.scratch_ends(b, s, h, p, n, min(chunk, s))
+    ws = torch.empty(ends[-1], dtype=torch.uint8, device="cuda")
 
     def old():
         rc = old_fn(x.data_ptr(), dt.data_ptr(), A.data_ptr(),
                     Bm.data_ptr(), Cm.data_ptr(), y_old.data_ptr(),
-                    st_old.data_ptr(), b, s, h, p, n, chunk, code,
-                    torch.cuda.current_stream().cuda_stream)
+                    st_old.data_ptr(),
+                    *(ws.data_ptr() + e for e in ends[:4]), b, s, h, p, n,
+                    chunk, code, torch.cuda.current_stream().cuda_stream)
         if rc:
             raise RuntimeError(f"earlier ssd launch failed: {rc}")
 
@@ -164,6 +171,7 @@ def ssd_case(old_fn, dtype, s: int, chunk: int, reps: int,
            "y_max_diff": float((y_old.float() - y_new.float()).abs().max()),
            "state_max_diff": float((st_old - st_new).abs().max())}
     if profile:
+        out["earlier_kernels_ms"] = kernel_times(old, reps)
         out["current_kernels_ms"] = kernel_times(new, reps)
     return out
 
@@ -192,6 +200,11 @@ def rglru_case(old_fn, s: int, reps: int) -> dict:
             "h_max_diff": float((h_old - h_new).abs().max())}
 
 
+#: (dtype, batch, tokens, chunk): mamba2-1.3b's prefill and forward in
+#: bf16 and f32, and its train microbatch in bf16
+SSD_SHAPES = [(dt, 2, s, q) for dt in (torch.bfloat16, torch.float32)
+              for s, q in ((512, 256), (520, 130))] \
+    + [(torch.bfloat16, 1, 4096, 256)]
 MRIQ_ARGTYPES = [c_ptr] * 9 + [c_int, c_int, c_ptr]
 #: the sweep of mriq's design constants: (voxels a thread, poly_every)
 MRIQ_VARIANTS = [(2, p) for p in (0, 24, 16, 12, 8, 6, 4, 2, 1)] + \
@@ -351,11 +364,10 @@ def main() -> int:
     if "ssd" in only:
         _build.build(["ssd"])
         old_ssd = build_old(args.parent, "ssd")
-        for dtype in (torch.bfloat16, torch.float32):
-            for s, chunk in ((512, 256), (520, 130)):
-                rows.append(ssd_case(old_ssd, dtype, s, chunk, args.reps,
-                                     args.profile))
-                print(json.dumps(rows[-1]), flush=True)
+        for dtype, b, s, chunk in SSD_SHAPES:
+            rows.append(ssd_case(old_ssd, dtype, b, s, chunk, args.reps,
+                                 args.profile))
+            print(json.dumps(rows[-1]), flush=True)
     if "rglru" in only:
         _build.build(["rglru"])
         old_rglru = build_old(args.parent, "rglru")

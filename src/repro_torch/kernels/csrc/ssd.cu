@@ -31,7 +31,8 @@
 //      the rows of B (B'), so x enters the product as it is stored.
 //   2. state_pass (one thread per 4 of (b, h, p, n)): S_c = exp(cum_L)·S_{c−1}
 //      + s_c in f32, in chunk order; writes the state entering each chunk
-//      c ≥ 1 (scratch, in x's dtype) and the final state.
+//      c ≥ 1 (scratch: f32, or its hi and lo bf16 parts, below) and the
+//      final state.
 //   3. chunk_scan (one block per (64-row query tile, chunk, head, batch), a
 //      chunk's heaviest query tiles first): for the key tiles j ≤ i,
 //      W'_ij = G_ij·exp(cum_i − cum_j)·dt_j, then y_i = W' x +
@@ -51,20 +52,29 @@
 // bf16: every product is mma.sync.m16n8k16 (bf16 x bf16 -> f32).  Pass 0: 4
 // warps of 16 rows.  Pass 1: 8 warps, each 16 (or 32) rows of P x 64 of N,
 // x by ldmatrix.trans as the A operand (rows along P), B' by
-// ldmatrix.trans; the chunk's rows of x and B are copied at once by
-// cp.async while the cumsum is formed.  Pass 3: 4 warps of 16 query rows;
+// ldmatrix.trans; KG rows of x and B are copied at once by cp.async (the
+// first while the cumsum is formed).  Pass 3: 4 warps of 16 query rows;
 // G_ij and x_j arrive through a two-stage cp.async ring (a third stage
 // costs a block an SM); the score fragments, read from shared memory in the
-// mma C layout, become W' in registers and, rounded to bf16, the A operand
-// of W' x (the C layout of two key tiles is the A layout of one k16 step),
-// as flash_attention holds P.  Rows of x, B or C that are not 16-byte
-// aligned (P or N not a multiple of 8) take an element-wise load path
-// instead of cp.async, chosen by the launcher from the shapes.  Against
-// the plain version in f32 the bf16 instance rounds three things to bf16,
-// each once: B' before the chunk-state product, S_{c−1} before C Sᵀ, and W'
-// before W' x (x, B and C are bf16 already; G stays f32); y is rounded once
-// more as it is stored.  A y element meets W' (its chunk's own part) or B'
-// then S_{c−1} (the carried part); the final state meets B' only.
+// mma C layout, become W' in registers and the A operand of W' x (the C
+// layout of two key tiles is the A layout of one k16 step), as
+// flash_attention holds P.  Rows of x, B or C that are not 16-byte aligned
+// (P or N not a multiple of 8) take an element-wise load path instead of
+// cp.async, chosen by the launcher from the shapes.
+//
+// bf16 arithmetic: as the Pallas kernel, which computes in f32, the bf16
+// instance rounds one thing, y, once as it stores it.  x, B and C are bf16
+// as stored and enter their products exactly; G and every accumulator are
+// f32.  The three products whose other operand is an f32 value (B' in
+// xᵀB', S_{c−1} in C Sᵀ, W' in W' x) take it as two bf16 parts, hi =
+// bf16(v) and lo = bf16(v − hi) (split_bf16), and run twice: a·hi + a·lo.
+// v − hi is exact in f32, |v − hi| ≤ u|v| and |v − hi − lo| ≤ u²|v|, u =
+// 2^-8, so each split moves its product by at most u² of its sum of
+// |terms|.  The final state meets one split (B'); y's own part meets one
+// (W'), its carried part two (B', then S_{c−1}): at most 2u²(1 + u²) of
+// the sums of |terms| that the plain version on |x|, |B|, |C| bounds
+// (ref.ssd_bf16_tolerance), beside f32 sums in another order.  Pass 2
+// writes S_{c−1} as its hi and lo planes (the bytes of f32).
 //
 // f32: the same passes and grids on the CUDA cores, no TF32.  Each thread
 // owns a 4 x 4 patch (4 x 8 where P or N is over 64) of each product and
@@ -79,7 +89,7 @@ namespace {
 using bf16 = __nv_bfloat16;
 
 constexpr int BT = 64;                      // positions in a tile
-constexpr int KG = 256;                     // pass 1 bf16: rows copied at once
+constexpr int KG = 128;                     // pass 1 bf16: rows copied at once
 constexpr int DMAX = 128;                   // largest P and N
 constexpr int THREADS = 256, WARPS = THREADS / 32;  // passes 1 (both) and 3 (f32)
 constexpr int TC_THREADS = 128;             // pass 3 bf16: 4 warps x 16 rows
@@ -155,7 +165,46 @@ __device__ bool split_decay(const float* cum, float* kfac, int i0, int hi) {
   return split;
 }
 
+// v as hi = bf16(v) and lo = bf16(v − hi), for two values a and b packed
+// as a bf16 pair each (a in the low half): hi + lo is v to u² of it.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi,
+                                           uint32_t& lo) {
+  hi = tc::pack_bf16(a, b);
+  float h[2];
+  rt::Io<bf16>::unpack2(hi, h);
+  lo = tc::pack_bf16(a - h[0], b - h[1]);
+}
+
 // ---- pass 2: the states, in chunk order -----------------------------------
+
+// the state v[0..VEC) entering chunk blk = (b·nc + c)·H + h at elements
+// pn..: f32 as it is; for the bf16 products, its hi and lo parts in two
+// planes of PN (VEC = 4: 8-byte stores, pn and PN multiples of 4)
+template <int VEC>
+__device__ __forceinline__ void put_enter(float* e, size_t blk, int PN,
+                                          int pn, const float* v) {
+#pragma unroll
+  for (int i = 0; i < VEC; ++i) e[blk * PN + pn + i] = v[i];
+}
+template <int VEC>
+__device__ __forceinline__ void put_enter(bf16* e, size_t blk, int PN, int pn,
+                                          const float* v) {
+  bf16* hi = e + blk * 2 * PN + pn;
+  bf16* lo = hi + PN;
+  if constexpr (VEC == 4) {
+    uint32_t h[2], l[2];
+    split_bf16(v[0], v[1], h[0], l[0]);
+    split_bf16(v[2], v[3], h[1], l[1]);
+    *reinterpret_cast<uint2*>(hi) = make_uint2(h[0], h[1]);
+    *reinterpret_cast<uint2*>(lo) = make_uint2(l[0], l[1]);
+  } else {
+#pragma unroll
+    for (int i = 0; i < VEC; ++i) {
+      hi[i] = __float2bfloat16_rn(v[i]);
+      lo[i] = __float2bfloat16_rn(v[i] - __bfloat162float(hi[i]));
+    }
+  }
+}
 
 // VEC elements a thread (4 where P·N is a multiple of 4, in 16-byte loads)
 template <typename T, int VEC>
@@ -169,13 +218,10 @@ state_pass(const float* __restrict__ states, const float* __restrict__ cum,
   const float* cb = cum + ((size_t)b * H + h) * S;
   float s[VEC] = {};
   for (int c = 0; c < nc; ++c) {
-    const size_t o = (((size_t)b * nc + c) * H + h) * PN + pn;
+    const size_t blk = ((size_t)b * nc + c) * H + h;
     float v[VEC];
-    rt::lds<VEC>(states + o, v);  // (a plain load of VEC floats)
-    if (c > 0) {
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) enter[o + e] = rt::Io<T>::cvt(s[e]);
-    }
+    rt::lds<VEC>(states + blk * PN + pn, v);  // (a plain load of VEC floats)
+    if (c > 0) put_enter<VEC>(enter, blk, PN, pn, s);
     const float d = expf(cb[min(S, (c + 1) * Q) - 1]);
 #pragma unroll
     for (int e = 0; e < VEC; ++e) s[e] = fmaf(d, s[e], v[e]);
@@ -227,11 +273,11 @@ __device__ void load_tile(bf16* dst, int ld, const bf16* src, size_t stride,
   }
 }
 
-// Pass 1, bf16: s_c = xᵀ B' for one (chunk, head, batch), KG rows of the
-// chunk at a time (all of it for Q <= KG).  The rows of x and of B are
-// copied at once while the chunk's cumsum is formed; B is then weighted in
-// place.  Warp w computes rows 16·(w % 4) (and + 64) of P against columns
-// 64·(w / 4) of N.
+// Pass 1, bf16: s_c = xᵀ B'_hi + xᵀ B'_lo for one (chunk, head, batch), KG
+// rows of the chunk at a time (all of it for Q <= KG).  The first rows of x
+// and of B are copied while the chunk's cumsum is formed; B is then
+// weighted in place (hi) and its remainder written beside it (lo).  Warp w
+// computes rows 16·(w % 4) (and + 64) of P against columns 64·(w / 4) of N.
 __global__ void __launch_bounds__(THREADS)
 chunk_state_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ A, const bf16* __restrict__ Bm,
@@ -240,8 +286,9 @@ chunk_state_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
   extern __shared__ float4 smem4[];
   const int PP = up16(P), NP = up16(N), LDP = PP + 8, LDN = NP + 8;
   bf16* Xs = reinterpret_cast<bf16*>(smem4);  // [KG][LDP] x rows
-  bf16* Bs = Xs + KG * LDP;                   // [KG][LDN] B' rows
-  float* cum = reinterpret_cast<float*>(Bs + KG * LDN);  // [Q]
+  bf16* Bs = Xs + KG * LDP;                   // [KG][LDN] B'_hi rows
+  bf16* Bl = Bs + KG * LDN;                   // [KG][LDN] B'_lo rows
+  float* cum = reinterpret_cast<float*>(Bl + KG * LDN);  // [Q]
   float* wgt = cum + Q;                                   // [Q]
   float* wsum = wgt + Q;                                  // [WARPS]
 
@@ -272,28 +319,36 @@ chunk_state_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
     if (k0 == 0)
       chunk_cumsum(dt + (size_t)b * S * H + h, A[h], c0, L, H, cum, wgt, wsum,
                    cum_g + ((size_t)b * H + h) * S + c0);
-    // B' = B · wgt, rounded to bf16 (the first of the three roundings)
+    // B' = B · wgt in f32, as hi and lo (split_bf16); rows past `rows`
+    // (zeros) stay zeros
     if (vec) {
       tc::cp_async_wait<0>();
       __syncthreads();
       const int nch = NP / 8;
-      for (int i = tid; i < rows * nch; i += THREADS) {
-        const int r = i / nch;
-        uint4* p = reinterpret_cast<uint4*>(Bs + r * LDN + (i % nch) * 8);
+      for (int i = tid; i < up16(rows) * nch; i += THREADS) {
+        const int r = i / nch, o = r * LDN + (i % nch) * 8;
+        uint4* p = reinterpret_cast<uint4*>(Bs + o);
         float v[8];
         rt::Io<bf16>::unpack(*p, v);
-        const float w = wgt[k0 + r];
+        const float w = r < rows ? wgt[k0 + r] : 0.f;
+        uint32_t hi[4], lo[4];
 #pragma unroll
-        for (int e = 0; e < 8; ++e) v[e] *= w;
-        *p = rt::Io<bf16>::pack(v);
+        for (int e = 0; e < 4; ++e)
+          split_bf16(v[2 * e] * w, v[2 * e + 1] * w, hi[e], lo[e]);
+        *p = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+        *reinterpret_cast<uint4*>(Bl + o) = make_uint4(lo[0], lo[1], lo[2],
+                                                       lo[3]);
       }
     } else {
       for (int i = tid; i < up16(rows) * NP; i += THREADS) {
         const int r = i / NP, cc = i % NP;
         const bool ok = r < rows && cc < N;
-        Bs[r * LDN + cc] = __float2bfloat16_rn(
+        const float v =
             ok ? __bfloat162float(Bb[(size_t)(k0 + r) * N + cc]) * wgt[k0 + r]
-               : 0.f);
+               : 0.f;
+        const bf16 hi = __float2bfloat16_rn(v);
+        Bs[r * LDN + cc] = hi;
+        Bl[r * LDN + cc] = __float2bfloat16_rn(v - __bfloat162float(hi));
       }
       tc::cp_async_wait<0>();
     }
@@ -315,14 +370,19 @@ chunk_state_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
       for (int np = 0; np < 4; ++np) {
         const int nb = n0 + np * 16;
         if (nb >= NP) break;
-        uint32_t bfr[4];  // b0, b1 of n-tile 2np; b0, b1 of 2np + 1
-        tc::ldsm_x4_t(bfr, Bs + (kk * 16 + ((lane >> 3) & 1) * 8 +
-                                 (lane & 7)) * LDN + nb + (lane >> 4) * 8);
+        // b0, b1 of n-tile 2np; b0, b1 of 2np + 1: of B'_hi, then B'_lo
+        uint32_t bh[4], bl[4];
+        const int o = (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * LDN +
+                      nb + (lane >> 4) * 8;
+        tc::ldsm_x4_t(bh, Bs + o);
+        tc::ldsm_x4_t(bl, Bl + o);
 #pragma unroll
         for (int mi = 0; mi < 2; ++mi) {
           if (((warp & 3) + 4 * mi) * 16 >= PP) break;
-          tc::mma16816(acc[mi][2 * np], af[mi], bfr[0], bfr[1]);
-          tc::mma16816(acc[mi][2 * np + 1], af[mi], bfr[2], bfr[3]);
+          tc::mma16816(acc[mi][2 * np], af[mi], bh[0], bh[1]);
+          tc::mma16816(acc[mi][2 * np + 1], af[mi], bh[2], bh[3]);
+          tc::mma16816(acc[mi][2 * np], af[mi], bl[0], bl[1]);
+          tc::mma16816(acc[mi][2 * np + 1], af[mi], bl[2], bl[3]);
         }
       }
     };
@@ -334,7 +394,7 @@ chunk_state_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
     for (int kk = whole; kk * 16 < rows; ++kk) step(kk);
   }
 
-  // s_c through shared memory ([PP][NP + 8] f32 over the x and B rows),
+  // s_c through shared memory ([PP][NP + 8] f32 over the x and B' rows),
   // then out in 16-byte stores
   __syncthreads();
   float* Os = reinterpret_cast<float*>(smem4);
@@ -434,8 +494,8 @@ chunk_gram_tc(const bf16* __restrict__ Bm, const bf16* __restrict__ Cm,
 // Pass 3, bf16: y for one 64-row query tile of one (chunk, head, batch),
 // 4 warps of 16 rows.  PM: the instance's largest P (64 or 128).  Key tile
 // j's x_j and score tile G_ij arrive through a two-stage cp.async ring;
-// stage 1 first holds C_i and S_{c-1}, until the carried state's part is
-// taken.
+// stage 1 first holds C_i and S_{c-1}'s hi and lo planes, until the
+// carried state's part is taken.
 template <int PM>
 __global__ void __launch_bounds__(TC_THREADS)
 chunk_scan_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
@@ -450,9 +510,10 @@ chunk_scan_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
   char* st0 = reinterpret_cast<char*>(smem4);
   char* st1 = st0 + stage;
   bf16* Cs = reinterpret_cast<bf16*>(st1);  // [BT][LDN] C_i, then stage 1
-  bf16* Ss = Cs + BT * LDN;                 // [PP][LDN] S_{c-1}, likewise
+  bf16* Ss = Cs + BT * LDN;                 // [PP][LDN] S_{c-1} hi, likewise
+  bf16* Sl = Ss + PP * LDN;                 // [PP][LDN] S_{c-1} lo, likewise
   float* cum = reinterpret_cast<float*>(
-      st1 + max(stage, (BT + PP) * LDN * 2));  // [nq·BT]
+      st1 + max(stage, (BT + 2 * PP) * LDN * 2));  // [nq·BT]
   float* kfac = cum + nq * BT;  // [nq·BT] dt_j, then the column factors
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
@@ -481,9 +542,9 @@ chunk_scan_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
   if (c > 0) {
     load_tile<TC_THREADS>(Cs, LDN, Cm + ((size_t)b * S + c0 + i0) * N, N, BT,
                           L - i0, N, NP, vec, Cm);
-    load_tile<TC_THREADS>(Ss, LDN,
-                          enter + (((size_t)b * nc + c) * H + h) * P * N, N,
-                          PP, P, N, NP, vec, enter);
+    const bf16* eb = enter + (((size_t)b * nc + c) * H + h) * 2 * P * N;
+    load_tile<TC_THREADS>(Ss, LDN, eb, N, PP, P, N, NP, vec, enter);
+    load_tile<TC_THREADS>(Sl, LDN, eb + P * N, N, PP, P, N, NP, vec, enter);
   }
   tc::cp_async_commit();
   const float* cb = cum_g + ((size_t)b * H + h) * S + c0;
@@ -503,7 +564,7 @@ chunk_scan_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
   for (int nt = 0; nt < PM / 8; ++nt)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[nt][e] = 0.f;
-  if (c > 0) {  // exp(cum_i)·(C_i S_{c-1}ᵀ), S rounded to bf16
+  if (c > 0) {  // exp(cum_i)·(C_i S_hiᵀ + C_i S_loᵀ)
     for (int kk = 0; kk * 16 < NP; ++kk) {
       uint32_t cf[4];
       tc::ldsm_x4(cf, Cs + (warp * 16 + (lane & 15)) * LDN + kk * 16 +
@@ -511,11 +572,15 @@ chunk_scan_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
 #pragma unroll
       for (int np = 0; np < PM / 16; ++np) {
         if (np * 16 >= PP) break;
-        uint32_t sf[4];
-        tc::ldsm_x4(sf, Ss + (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LDN +
-                                kk * 16 + ((lane >> 3) & 1) * 8);
-        tc::mma16816(acc[2 * np], cf, sf[0], sf[1]);
-        tc::mma16816(acc[2 * np + 1], cf, sf[2], sf[3]);
+        uint32_t sh[4], sl[4];
+        const int o = (np * 16 + (lane >> 4) * 8 + (lane & 7)) * LDN +
+                      kk * 16 + ((lane >> 3) & 1) * 8;
+        tc::ldsm_x4(sh, Ss + o);
+        tc::ldsm_x4(sl, Sl + o);
+        tc::mma16816(acc[2 * np], cf, sh[0], sh[1]);
+        tc::mma16816(acc[2 * np + 1], cf, sh[2], sh[3]);
+        tc::mma16816(acc[2 * np], cf, sl[0], sl[1]);
+        tc::mma16816(acc[2 * np + 1], cf, sl[2], sl[3]);
       }
     }
     const float ea = ia < L ? expf(cum[ia]) : 0.f;
@@ -581,21 +646,25 @@ chunk_scan_tc(const bf16* __restrict__ x, const float* __restrict__ dt,
                           : 0.f;
         }
     }
-    // y += W' x_j, W' rounded to bf16 in registers
+    // y += W'_hi x_j + W'_lo x_j, W' split in registers
 #pragma unroll
     for (int kk = 0; kk < BT / 16; ++kk) {
       const float(&p0)[4] = sc[2 * kk], (&p1)[4] = sc[2 * kk + 1];
-      const uint32_t pa[4] = {
-          tc::pack_bf16(p0[0], p0[1]), tc::pack_bf16(p0[2], p0[3]),
-          tc::pack_bf16(p1[0], p1[1]), tc::pack_bf16(p1[2], p1[3])};
+      uint32_t ph[4], pl[4];
+      split_bf16(p0[0], p0[1], ph[0], pl[0]);
+      split_bf16(p0[2], p0[3], ph[1], pl[1]);
+      split_bf16(p1[0], p1[1], ph[2], pl[2]);
+      split_bf16(p1[2], p1[3], ph[3], pl[3]);
 #pragma unroll
       for (int np = 0; np < PM / 16; ++np) {
         if (np * 16 >= PP) break;
         uint32_t vf[4];
         tc::ldsm_x4_t(vf, xs + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) *
                                    LDP + np * 16 + (lane >> 4) * 8);
-        tc::mma16816(acc[2 * np], pa, vf[0], vf[1]);
-        tc::mma16816(acc[2 * np + 1], pa, vf[2], vf[3]);
+        tc::mma16816(acc[2 * np], ph, vf[0], vf[1]);
+        tc::mma16816(acc[2 * np + 1], ph, vf[2], vf[3]);
+        tc::mma16816(acc[2 * np], pl, vf[0], vf[1]);
+        tc::mma16816(acc[2 * np + 1], pl, vf[2], vf[3]);
       }
     }
     tc::cp_async_wait<0>();
@@ -958,7 +1027,7 @@ cudaError_t run_bf16(const void* x, const void* dt, const void* A,
       static_cast<const bf16*>(Bm), static_cast<const bf16*>(Cm), w.gram, S,
       N, Q, nc, nq, vec);
   RT_TRY(cudaGetLastError());
-  const int smem1 = KG * (LDP + LDN) * 2 + (2 * Q + WARPS) * 4;
+  const int smem1 = KG * (LDP + 2 * LDN) * 2 + (2 * Q + WARPS) * 4;
   rt::note_smem(smem1);
   RT_TRY(allow_smem<chunk_state_tc>());
   chunk_state_tc<<<dim3(nc, H, B), THREADS, smem1, st>>>(
@@ -970,7 +1039,7 @@ cudaError_t run_bf16(const void* x, const void* dt, const void* A,
                               Q, nc, st));
   const int stage = BT * LDG * 4 + BT * LDP * 2;
   const int smem3 =
-      stage + std::max(stage, (BT + PP) * LDN * 2) + 2 * nq * BT * 4;
+      stage + std::max(stage, (BT + 2 * PP) * LDN * 2) + 2 * nq * BT * 4;
   rt::note_smem(smem3);
   const dim3 grid(nc * nq, H, B);
   return (P <= 64 ? scan_tc<64> : scan_tc<128>)(grid, smem3, st, x, dt, Cm, w,
@@ -1035,8 +1104,9 @@ cudaError_t run_f32(const void* x, const void* dt, const void* A,
 }  // namespace
 
 // Scratch the wrapper allocates, with nc = ceil(S / Q) and QP = 64·ceil(Q /
-// 64): ws_states (B, nc, H, P, N) f32, ws_enter the same in x's dtype,
-// ws_cum (B, H, S) f32, ws_gram (B, nc, QP, QP) f32.
+// 64): ws_states (B, nc, H, P, N) f32; ws_enter the same bytes: f32, or for
+// bf16 (B, nc, H, 2, P, N), the hi and lo planes; ws_cum (B, H, S) f32,
+// ws_gram (B, nc, QP, QP) f32.
 extern "C" int ssd_launch(const void* x, const void* dt, const void* A,
                           const void* Bm, const void* Cm, void* y, void* state,
                           void* ws_states, void* ws_enter, void* ws_cum,

@@ -194,31 +194,43 @@ def ssd_ref(x, dt, A, Bm, Cm, chunk=64):
 #: bf16's unit roundoff: a bf16 has an 8-bit significand, so rounding to
 #: nearest moves a value by at most 2^-8 of itself
 BF16_UNIT = 2.0 ** -8
-#: the bf16 SSD kernel's roundings to bf16 before a product, as multiples
-#: of BF16_UNIT on each path: y meets W' (intra-chunk) or B' then S_{c-1}
-#: (carried state: 2u + u^2 <= 3u); the final state meets B' only
-SSD_BF16_ROUNDINGS = {"y": 3, "state": 1}
+#: the bf16 SSD kernel's hi/lo splits of an f32 operand before a product,
+#: on each path: y meets W' (intra-chunk) or B' then S_{c-1} (carried
+#: state); the final state meets B' only
+SSD_BF16_SPLITS = {"y": 2, "state": 1}
 
 
 def ssd_bf16_tolerance(x, dt, A, Bm, Cm, chunk, want):
     """Elementwise bounds on |kernel - want| for the bf16 SSD kernel, where
     ``want`` = (y, state) of the plain version in f32 on the same bf16
-    inputs.  Each rounding moves its product by at most BF16_UNIT of the
-    product's sum of |terms|; with dt >= 0 and every decay factor > 0 the
-    plain version on absolute values bounds each such sum elementwise:
-    ``Y_abs, S_abs = ssd_ref(|x|, dt, A, |B|, |C|, chunk)``.  Returns (y
-    bound, state bound):
-    ``k BF16_UNIT X_abs + 1e-4 max|want| + 2^-8 |want|`` (the last term:
-    y's own rounding as it is stored; 1e-4 max|want|: f32 sums in another
-    order), with k from SSD_BF16_ROUNDINGS."""
+    inputs.  The kernel rounds one thing, y, once as it stores it (2^-8
+    |want|).  Every f32 operand of a bf16 product (B', S_{c-1}, W') enters
+    it as hi = bf16(v) and lo = bf16(v - hi), v - hi exact in f32, with
+    |v - hi| <= u |v| and |v - hi - lo| <= u |v - hi| <= u^2 |v| (u =
+    BF16_UNIT); x, B and C are bf16 already and exact.  So a split moves
+    its product by at most u^2 of the product's sum of |terms|.  With dt
+    >= 0 and every decay factor > 0, the plain version on absolute values
+    bounds those sums elementwise: ``Y_abs, S_abs = ssd_ref(|x|, dt, A,
+    |B|, |C|, chunk)``.  The state meets one split (B': u^2 S_abs).  y's
+    intra-chunk part meets one (W'), its carried part two: B' moves S_{c-1}
+    by at most u^2 S_abs, and the split of that moved state by at most
+    u^2 (1 + u^2) S_abs; so k u^2 (1 + u^2) Y_abs with k from
+    SSD_BF16_SPLITS covers both parts.  Returns (y bound, state bound),
+    each ``k u^2 (1 + u^2) X_abs + 1e-4 (max|want| + |want|)`` (the
+    second term: the f32 kernel's tolerance, f32 sums in another order),
+    plus ``2^-8 |want|`` for y."""
     f = [t.float() for t in (x, Bm, Cm)]
     y_abs, s_abs = ssd_ref(f[0].abs(), dt.float(), A.float(), f[1].abs(),
                            f[2].abs(), chunk)
+    u2 = BF16_UNIT ** 2 * (1 + BF16_UNIT ** 2)
     out = []
     for part, xa, w in (("y", y_abs, want[0]), ("state", s_abs, want[1])):
         w = w.float()
-        out.append(SSD_BF16_ROUNDINGS[part] * BF16_UNIT * xa
-                   + 1e-4 * float(w.abs().max()) + 2.0 ** -8 * w.abs())
+        bnd = SSD_BF16_SPLITS[part] * u2 * xa \
+            + 1e-4 * (float(w.abs().max()) + w.abs())
+        if part == "y":
+            bnd = bnd + BF16_UNIT * w.abs()
+        out.append(bnd)
     return tuple(out)
 
 

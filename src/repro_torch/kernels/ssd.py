@@ -6,7 +6,9 @@ chunk's scores C Bᵀ (once for all heads) and each chunk's own state,
 passes the states across chunks in order, then scans each 64-row query
 tile against its key tiles below the diagonal, masked before the
 exponential (bf16 products on the tensor cores, f32 on the CUDA cores).
-See the source for its bound, design and roundings.
+In bf16 it rounds only y, as it stores it: an f32 operand of a bf16
+product enters it as two bf16 parts.  See the source for its bound,
+design and arithmetic.
 """
 from __future__ import annotations
 
@@ -34,9 +36,10 @@ def smem_bytes(p: int, n: int, q: int, dtype: torch.dtype) -> int:
         pp, np_ = _up16(p), _up16(n)
         ldp, ldn = pp + 8, np_ + 8
         gram = 2 * bt * ldn * 2
-        state = 256 * (ldp + ldn) * 2 + (2 * q + 8) * 4
+        # KG = 128 rows of x, B'_hi and B'_lo
+        state = 128 * (ldp + 2 * ldn) * 2 + (2 * q + 8) * 4
         stage = bt * (bt + 8) * 4 + bt * ldp * 2
-        scan = stage + max(stage, (bt + pp) * ldn * 2) + 2 * nq * bt * 4
+        scan = stage + max(stage, (bt + 2 * pp) * ldn * 2) + 2 * nq * bt * 4
         return max(gram, state, scan)
     if dtype == torch.float32:
         ldt = bt + 4
@@ -47,6 +50,20 @@ def smem_bytes(p: int, n: int, q: int, dtype: torch.dtype) -> int:
         scan = (bt * ldx + bt * ldt + 2 * nq * bt + n * ldt + n * ldx) * 4
         return max(gram, state, scan)
     raise TypeError(f"dtype {dtype} not in {tuple(DTYPES)}")
+
+
+def scratch_ends(b: int, s: int, h: int, p: int, n: int, q: int) -> list:
+    """Byte offsets of the launcher's four scratch parts in one allocation,
+    and its size last: each chunk's own state (f32), the state entering it
+    (f32, or in bf16 its hi and lo parts: the same bytes), the chunks'
+    cumsums of dt·A (B,H,S) and each chunk's scores C Bᵀ (B,nc,QP,QP), QP
+    = 64·ceil(Q/64); each part 256-byte aligned."""
+    nc, qp = -(-s // q), 64 * -(-q // 64)
+    ends = [0]
+    for size in (b * nc * h * p * n * 4, b * nc * h * p * n * 4,
+                 b * h * s * 4, b * nc * qp * qp * 4):
+        ends.append(ends[-1] + -(-size // 256) * 256)
+    return ends
 
 
 def ssd_cuda(x, dt, A, Bm, Cm, chunk: int):
@@ -72,18 +89,9 @@ def ssd_cuda(x, dt, A, Bm, Cm, chunk: int):
     if s < 1 or chunk < 1:
         raise ValueError(f"sequence {s} and chunk {chunk} must be >= 1")
     q = min(chunk, s)
-    nc = -(-s // q)
     y = torch.empty_like(x)
     state = torch.empty((b, h, p, n), dtype=torch.float32, device=dev)
-    qp = 64 * -(-q // 64)
-    # scratch, in one allocation: each chunk's own state (f32), the state
-    # entering it (x's dtype), the chunks' cumsums of dt·A (B,H,S) and each
-    # chunk's scores C Bᵀ (B,nc,QP,QP), QP = 64·ceil(Q/64)
-    parts = [b * nc * h * p * n * 4, b * nc * h * p * n * x.element_size(),
-             b * h * s * 4, b * nc * qp * qp * 4]
-    ends = [0]
-    for size in parts:
-        ends.append(ends[-1] + -(-size // 256) * 256)
+    ends = scratch_ends(b, s, h, p, n, q)
     ws = torch.empty(ends[-1], dtype=torch.uint8, device=dev)
     base = ws.data_ptr()
     KERNEL.launch(x.data_ptr(), dt.data_ptr(), A.data_ptr(), Bm.data_ptr(),

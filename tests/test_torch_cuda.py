@@ -10,13 +10,15 @@ is held against f64 alone: there the f32 plain version is itself off by
 more than the f32 tolerance.  bf16 results are held against the plain
 version run in f32 on the same bf16 inputs:
 
-* ssd runs its chunk products on the tensor cores and rounds B' (the rows
+* ssd runs its chunk products on the tensor cores and, as the Pallas
+  kernel, rounds only y, once as it stores it (rtol 2^-8).  B' (the rows
   of B weighted by dt_j exp(cum_L - cum_j)), the carried state S and the
-  decayed scores W' to bf16 before their products.  Each rounding moves
-  a product by at most 2^-8 (bf16's unit roundoff) of its sum of |terms|,
-  and the plain version run on |x|, |B|, |C| bounds those sums
-  elementwise: y is held at 3 x 2^-8 Y_abs, the state at 2^-8 S_abs, each
-  + 1e-4 max|plain| + 2^-8 |plain| (``ref.ssd_bf16_tolerance``).
+  decayed scores W' enter their products as hi + lo, two bf16 parts, each
+  such split within u^2 = 2^-16 of its product's sum of |terms|; the plain
+  version run on |x|, |B|, |C| bounds those sums elementwise: y is held at
+  2 u^2 (1 + u^2) Y_abs + 2^-8 |plain|, the state at u^2 (1 + u^2) S_abs,
+  each + the f32 kernel's 1e-4 (max|plain| + |plain|)
+  (``ref.ssd_bf16_tolerance``).
 * flash_attention runs on the tensor cores and rounds P to bf16 before PV,
   as the library's kernels do: each weight of a row moves by at most 2^-9
   of itself and the weights sum to 1, so the output moves by at most
@@ -279,8 +281,8 @@ def _ssd_inputs(rng, b, s, h, p, n, dtype, dt_shift=0.0):
 
 def _ssd_close(got, want, args, chunk):
     """f32: sums of up to N + Q f32 products in another order (atol 1e-4 x
-    the largest value, rtol 1e-4).  bf16: the derived bound of
-    ``ref.ssd_bf16_tolerance`` (see the module docstring)."""
+    the largest value, rtol 1e-4).  bf16: ``ref.ssd_bf16_tolerance``, y's
+    own rounding and the splits' u^2 (see the module docstring)."""
     if got[0].dtype == torch.float32:
         for g, w in zip(got, want):
             torch.testing.assert_close(g, w.float(), rtol=1e-4,
@@ -340,6 +342,18 @@ def test_ssd_kernel_at_mamba2_shapes(cuda, dtype, s, chunk):
     got = SD.ssd_cuda(*args, chunk)
     _ssd_close(got, ref.ssd_ref(*f32, chunk), args, chunk)
     _ssd_close(got, ref.ssd_scan_ref(*f32), args, chunk)
+
+
+def test_ssd_kernel_at_the_train_shape(cuda):
+    """mamba2-1.3b's train microbatch (1 x 4096, chunk 256: 16 chunks in a
+    row carry the state) in bf16, against the recurrence and the plain
+    version."""
+    rng = np.random.default_rng(4096)
+    args = _ssd_inputs(rng, 1, 4096, 64, 64, 128, torch.bfloat16)
+    f32 = [a.float() for a in args]
+    got = SD.ssd_cuda(*args, 256)
+    _ssd_close(got, ref.ssd_scan_ref(*f32), args, 256)
+    _ssd_close(got, ref.ssd_ref(*f32, 256), args, 256)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -756,6 +770,94 @@ def test_reduced_train_step_on_the_card(cuda, arch):
         == want_launches
     for p in gparams.parameters():
         assert bool(torch.isfinite(p).all())
+
+
+#: chip_smoke.py's hold of a first train step against the stock f32 step:
+#: max(TRAIN_FLOOR |f32|, BF16_GAP_SLACK x the stock bf16 step's gap)
+TRAIN_FLOOR = 2.0 ** -8
+BF16_GAP_SLACK = 1.25
+
+
+def _layer_norms(grads: dict, n_layers: int) -> list:
+    """Each layer's gradient norm (f32), then the rest's (embedding and
+    final norm)."""
+    sums = [0.0] * (n_layers + 1)
+    for name, g in grads.items():
+        i = int(name.split(".")[1]) if name.startswith("layers.") \
+            else n_layers
+        sums[i] += float(torch.sum(torch.square(g.float())))
+    return [v ** 0.5 for v in sums]
+
+
+def test_mamba2_first_step_grad_norm_at_24_layers(cuda):
+    """ROADMAP C4: mamba2-1.3b at its published width, 24 of 48 layers,
+    random weights from one init, one microbatch (1 x 4096) of
+    train_4k_b4.  The first step's gradient norm under the offload plan
+    (the ssd kernel) must lie within chip_smoke.py's hold of the stock f32
+    step's: max(2^-8 |f32|, 1.25 x the stock bf16 step's gap).  On this
+    path the offload plan differs from the stock bf16 plan only in the
+    ssd kernel against ``ssd_chunked``.  Prints the norms per layer and
+    in total, and the first layer whose norm leaves the same hold; and,
+    to read how far the norm moves with the f32 sums alone, three probes
+    beside the held plans: the offload step again, the stock bf16 step at
+    chunk 128 (the same function, its f32 sums in another order) and the
+    offload plan in f32 (the f32 kernel)."""
+    import gc
+    from repro_torch.configs.base import get_shape
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.train.step import (global_norm, make_grad_step,
+                                        param_leaves)
+    layers = 24
+    cfg = dataclasses.replace(get_config("mamba2-1.3b"), n_layers=layers)
+    shape = get_shape("train_4k_b4")
+    data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
+                                  seq_len=shape.seq_len,
+                                  global_batch=shape.global_batch))
+    batch = {k: torch.from_numpy(v[:1]).cuda()
+             for k, v in data.batch(0).items()}
+    one = cfg.plan.replace(microbatches=1)
+    params = Model(cfg, one).init(torch.Generator(device="cuda")
+                                  .manual_seed(0))
+    off = one.replace(attn_impl="pallas", mlp_impl="pallas",
+                      ssm_impl="pallas", rglru_impl="pallas")
+    f32 = dict(compute_dtype="float32")
+    runs = {"f32": (cfg, one.replace(**f32)), "bf16": (cfg, one),
+            "offload": (cfg, off), "offload again": (cfg, off),
+            "bf16 chunk 128": (dataclasses.replace(cfg, ssm_chunk=128), one),
+            "offload f32": (cfg, off.replace(**f32))}
+    total, per_layer = {}, {}
+    for label, (c, plan) in runs.items():
+        n0 = SD.KERNEL.launches
+        grads, _ = make_grad_step(Model(c, plan))(params, batch)
+        assert (SD.KERNEL.launches > n0) == (plan.ssm_impl == "pallas"), \
+            label
+        total[label] = float(global_norm(param_leaves(cfg, grads)))
+        per_layer[label] = _layer_norms(grads, layers)
+        del grads
+        gc.collect()
+        torch.cuda.empty_cache()
+    for a, b in (("offload again", "offload"), ("bf16 chunk 128", "bf16"),
+                 ("offload f32", "f32")):
+        print(f"C4 probe: {a} {total[a]:.6f} against {b} {total[b]:.6f}, "
+              f"{abs(total[a] - total[b]) / total[b]:.3e} of it")
+
+    def hold(f32, bf16):
+        return max(TRAIN_FLOOR * abs(f32), BF16_GAP_SLACK * abs(bf16 - f32))
+    first = next((i for i, (o, f, b) in enumerate(zip(
+        per_layer["offload"], per_layer["f32"], per_layer["bf16"]))
+        if abs(o - f) > hold(f, b)), None)
+    for i, (o, f, b) in enumerate(zip(per_layer["offload"], per_layer["f32"],
+                                      per_layer["bf16"])):
+        print(f"C4 {'layer ' + str(i) if i < layers else 'rest'}: offload "
+              f"{o:.6f} f32 {f:.6f} bf16 {b:.6f} |offload - f32| "
+              f"{abs(o - f):.3e} hold {hold(f, b):.3e}")
+    limit = hold(total["f32"], total["bf16"])
+    msg = (f"C4 total: offload {total['offload']:.6f} f32 {total['f32']:.6f}"
+           f" bf16 {total['bf16']:.6f}; |offload - f32| "
+           f"{abs(total['offload'] - total['f32']):.3e}, limit {limit:.3e};"
+           f" first layer off its hold: {first}")
+    print(msg)
+    assert abs(total["offload"] - total["f32"]) <= limit, msg
 
 
 def test_measured_train_trial_on_the_card(cuda, monkeypatch):

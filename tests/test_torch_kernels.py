@@ -4,7 +4,8 @@ interpret mode, as tests/test_kernels.py runs them) and the jnp oracles.
 Inputs come from numpy seeds and go through both packages.  Tolerances are
 tests/test_kernels.py's: mriq atol 5e-4 rtol 1e-4; flash 2e-5 (f32) and
 2e-2 (bf16); swiglu 2e-5; rglru 2e-5; ssd 1e-4, and 2e-4 across chunk
-sizes.  On CPU tensors the public wrappers run the plain versions and
+sizes.  The mirrors of the bf16 SSD kernel's arithmetic on bf16 inputs
+are held at ``ref.ssd_bf16_tolerance``.  On CPU tensors the public wrappers run the plain versions and
 never launch (or build) a kernel.
 """
 import inspect
@@ -459,8 +460,15 @@ def _bf16(t):
     return t.to(torch.bfloat16).float()
 
 
+def _split(t):
+    """t as the bf16 kernel feeds an f32 operand to a bf16 product: hi =
+    bf16(t) plus lo = bf16(t - hi), summed exactly in f32."""
+    hi = _bf16(t)
+    return hi + _bf16(t - hi)
+
+
 def ssd_passes(x, dt, A, Bm, Cm, chunk, tile=64, rounded=False,
-               split_span=64.0):
+               split=False, split_span=64.0):
     """The SSD kernel's decomposition in plain PyTorch: chunks of
     min(chunk, S) positions (the last may be shorter); pass 1, each chunk's
     state s_c = xᵀ B' with B' = B · dt_j exp(cum_L − cum_j); pass 2, S_c =
@@ -470,11 +478,13 @@ def ssd_passes(x, dt, A, Bm, Cm, chunk, tile=64, rounded=False,
     ``tile``'s first row, below the diagonal tile and on it where the
     tile's span cum_i0 − cum_last is under ``split_span``), y = W' x +
     exp(cum_i) C S_{c-1}ᵀ.
-    ``rounded`` rounds B', S_{c-1} and W' to bf16 before their products, as
-    the bf16 kernel does.  Returns (y in x's dtype, final state f32)."""
+    ``split`` feeds B', S_{c-1} and W' to their products as hi + lo, two
+    bf16 parts, as the bf16 kernel does; ``rounded`` rounds them to bf16
+    alone, as the bf16 kernel did before it split them.  Returns (y in x's
+    dtype, final state f32)."""
     b, s, h, p = x.shape
     q = min(chunk, s)
-    rnd = _bf16 if rounded else (lambda t: t)
+    rnd = _split if split else _bf16 if rounded else (lambda t: t)
     xf, Bf, Cf, dtf = x.float(), Bm.float(), Cm.float(), dt.float()
     state = torch.zeros((b, h, p, Bm.shape[-1]))
     y = torch.empty((b, s, h, p))
@@ -546,29 +556,67 @@ def test_ssd_pass_mirror_ragged_chunks_against_the_recurrence(s, chunk, p, n,
                                    atol=1e-4 * float(want.abs().max()))
 
 
-@pytest.mark.parametrize("s,chunk,scan", [(64, 16, False), (128, 64, False),
-                                          (512, 256, True), (520, 130, True)])
-def test_ssd_bf16_roundings_within_the_derived_bound(s, chunk, scan):
-    """The bf16 kernel's roundings (B', S, W') on bf16 inputs stay within
-    ``ref.ssd_bf16_tolerance`` of the f32 plain version (chunk 256: of the
-    recurrence, where the JAX reference is NaN), and of the Pallas kernel
-    at chunks where it is finite; and they do move the result."""
-    rng = np.random.default_rng(s)
-    x, dt, A, Bm, Cm = _ssd_inputs(rng, 2, s, 3, 16, 32,
+def _ssd_bf16_case(s, chunk, scan, batch=2, heads=3, p=16, n=32):
+    """bf16 inputs (as f32 tensors) from numpy seed ``s``, and the plain
+    version in f32 on them: of the recurrence where ``scan`` (the JAX
+    reference is NaN there, fault C1: dt not scaled down), else the
+    chunked plain version (dt quartered)."""
+    x, dt, A, Bm, Cm = _ssd_inputs(np.random.default_rng(s), batch, s,
+                                   heads, p, n,
                                    dt_scale=1.0 if scan else 0.25)
     xb, Bb, Cb = (_bf16(_t(a)) for a in (x, Bm, Cm))
     args = (xb, _t(dt), _t(A), Bb, Cb)
-    got = ssd_passes(*args, chunk, rounded=True)
     want = ref.ssd_scan_ref(*args) if scan else ref.ssd_ref(*args, chunk)
-    if not scan:
-        jw = ssd_pallas(*map(jnp.asarray, (xb.numpy(), dt, A, Bb.numpy(),
-                                           Cb.numpy())), chunk=chunk)
-        for g, w in zip(want, jw):
-            _close(g, w, (1e-4, 1e-4))
+    return args, want
+
+
+def _within(got, want, bounds):
+    return all(bool(((g - w).abs() <= bnd).all())
+               for g, w, bnd in zip(got, want, bounds))
+
+
+@pytest.mark.parametrize("s,chunk,scan", [(64, 16, False), (128, 64, False),
+                                          (512, 256, True), (520, 130, True)])
+def test_ssd_bf16_roundings_within_the_derived_bound(s, chunk, scan):
+    """The bf16 kernel's arithmetic (B', S and W' split into hi + lo bf16
+    parts) on bf16 inputs stays within ``ref.ssd_bf16_tolerance`` of the
+    f32 plain version; the arithmetic it had before (B', S and W' rounded
+    to bf16 alone, fault C10) lies outside it, and moves the result."""
+    args, want = _ssd_bf16_case(s, chunk, scan)
     bounds = ref.ssd_bf16_tolerance(*args, chunk, want)
-    for g, w, bnd in zip(got, want, bounds):
-        assert bool(((g - w).abs() <= bnd).all())
-    assert not torch.allclose(got[0], want[0], atol=1e-6, rtol=0)
+    assert _within(ssd_passes(*args, chunk, split=True), want, bounds)
+    old = ssd_passes(*args, chunk, rounded=True)
+    for g, w, bnd in zip(old, want, bounds):
+        assert not bool(((g - w).abs() <= bnd).all())
+    assert not torch.allclose(old[0], want[0], atol=1e-6, rtol=0)
+
+
+@pytest.mark.parametrize("s,chunk", [(128, 16), (256, 32), (512, 64)])
+def test_ssd_bf16_split_mirror_matches_pallas_and_oracle(s, chunk):
+    """Eight chunks: the split arithmetic on bf16 inputs within the bound
+    of the Pallas kernel (interpret mode), the jnp oracle and the port's
+    plain version, each in f32 on the same inputs (dt quartered: the JAX
+    reference is finite)."""
+    args, want = _ssd_bf16_case(s, chunk, False)
+    got = ssd_passes(*args, chunk, split=True)
+    jargs = [jnp.asarray(a.numpy()) for a in args]
+    for jw in (ssd_pallas(*jargs, chunk=chunk),
+               jref.ssd_ref(*jargs, chunk=chunk)):
+        jw = tuple(torch.from_numpy(np.array(w, np.float32)) for w in jw)
+        assert _within(got, jw, ref.ssd_bf16_tolerance(*args, chunk, jw))
+    assert _within(got, want, ref.ssd_bf16_tolerance(*args, chunk, want))
+
+
+@pytest.mark.parametrize("s,chunk", [(2048, 256), (2100, 256), (1170, 130)])
+def test_ssd_bf16_split_mirror_against_the_recurrence(s, chunk):
+    """Eight or more chunks at the chunks of mamba2-1.3b's paths (256, and
+    130 = 64 + 64 + 2; 2100 ends in a short chunk), dt unscaled (the JAX
+    reference is NaN): the split arithmetic within the bound of the
+    token-by-token recurrence, the old arithmetic outside it."""
+    args, want = _ssd_bf16_case(s, chunk, True, batch=1)
+    bounds = ref.ssd_bf16_tolerance(*args, chunk, want)
+    assert _within(ssd_passes(*args, chunk, split=True), want, bounds)
+    assert not _within(ssd_passes(*args, chunk, rounded=True), want, bounds)
 
 
 def test_ssd_bf16_tolerance_is_what_the_docstring_says():
@@ -578,10 +626,12 @@ def test_ssd_bf16_tolerance_is_what_the_docstring_says():
     absy, abss = ref.ssd_ref(args[0].abs(), args[1], args[2],
                              args[3].abs(), args[4].abs(), 8)
     by, bs = ref.ssd_bf16_tolerance(*args, 8, want)
-    for bnd, xa, w, k in ((by, absy, want[0], 3), (bs, abss, want[1], 1)):
+    u = 2.0 ** -8
+    for bnd, xa, w, k, own in ((by, absy, want[0], 2, u),
+                               (bs, abss, want[1], 1, 0.0)):
         torch.testing.assert_close(
-            bnd, k * 2.0 ** -8 * xa + 1e-4 * w.abs().max()
-            + 2.0 ** -8 * w.abs())
+            bnd, k * u * u * (1 + u * u) * xa
+            + 1e-4 * (w.abs().max() + w.abs()) + own * w.abs())
 
 
 def rglru_window_scan(log_a, b, seg=32, warps=8):

@@ -395,7 +395,8 @@ def test_shared_memory_fit_without_a_card_is_the_h100s():
     ("swiglu", (8, 64, 128, torch.float32), (128 * 8 + 32 * 8 + 8192) * 4),
     ("swiglu", (40, 64, 128, torch.float32),
      (128 * 64 + 32 * 64 + 8192) * 4),
-    ("ssd", (64, 128, 256, torch.bfloat16), 256 * 208 * 2 + 520 * 4),
+    ("ssd", (64, 128, 256, torch.bfloat16), 128 * (72 + 2 * 136) * 2
+     + 520 * 4),
     ("rglru", (), 0),
 ])
 def test_kernel_smem_figures(kernel, args, want):
