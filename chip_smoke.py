@@ -60,7 +60,19 @@ a non-zero exit and no result line:
                        buffers (H2D + kernel + D2H, each part's median and
                        range over 5 legs), the Fig. 5 rows at the paper's
                        R740 node points and the offloaded leg at the card's
-                       measured draw (card-only);
+                       measured draw (card-only); its inputs the pattern
+                       search's (phiMag formed on the host from phiR, phiI);
+              patterns (qwen2-7b's path) the paper's §4 pattern search on
+                       MRI-Q measured on the card
+                       (``repro_torch.examples.mriq_offload``) at the same
+                       size, reusing Fig. 5's CPU-only leg and its card
+                       window of the full nest: per-voxel launches over
+                       4096 voxels (scaled), device trig with the sums on
+                       the host, the full nest, the full nest with phiMag
+                       on the card; each (Qr, Qi) held to the CPU-only leg,
+                       each new 5-s card window checked; seconds, node and
+                       card Ws, fitness, the selected pattern or tie, the
+                       reference's model beside; within PATTERN_BUDGET_S;
               prefill  2 x 512 tokens (2 x 2560 for recurrentgemma-9b, past
                        its 2048 window), then 8 decode steps, held against
                        the teacher-forced forward (qwen2-7b for three weight
@@ -104,6 +116,10 @@ a non-zero exit and no result line:
                        the card at decode_32k_b8 (a 32k cache at batch 8,
                        16 decode steps a call, a 5-s NVML window), neither
                        a penalty; the event and both trials printed;
+                       then the ledger and spans of (a) rendered on the
+                       host by the port's own readers
+                       (``repro_torch.scripts.power_report --ledger`` and
+                       ``trace_report --trace --metrics``);
               plans    (qwen2-7b's path, on the first OFFLOAD_LAYERS of
                        its loaded layers, counted as a path of its own: its
                        plans run stock ops) the sharding plan: (a)
@@ -1160,13 +1176,78 @@ def phase_calibrate(source) -> dict:
 
 def phase_fig5(source) -> dict:
     """The paper's Fig. 5 through the port's harness (bench_mriq), on the
-    card's power source."""
+    card's power source, on the pattern search's inputs (phiMag formed on
+    the host from phiR and phiI)."""
     from repro_torch.benchmarks import bench_mriq
+    from repro_torch.examples import mriq_offload
     from repro_torch.telemetry.nvml import check_window
-    out = bench_mriq.run(source=source, log=log)
+    out = bench_mriq.run(source=source, host=mriq_offload.fig5_inputs(0),
+                         log=log)
     check_window("fig5 idle window", out["idle_counter"])
     check_window("fig5 card-draw window", out["card_counter"])
     return out
+
+
+#: the pattern phase's budget, seconds: three 5-s NVML windows (naive,
+#: device trig, combination; the full nest's is Fig. 5's) and their calls
+PATTERN_BUDGET_S = 20.0
+
+
+def phase_patterns(fig5: dict, source, smi: str) -> dict:
+    """The paper's §4 pattern search on MRI-Q measured on the card
+    (``repro_torch.examples.mriq_offload``) at its size, reusing Fig. 5's
+    CPU-only leg and its card window of the full-nest leg; each pattern's
+    (Qr, Qi) held to the CPU-only leg (the example raises otherwise), each
+    new card window checked, the phase within PATTERN_BUDGET_S."""
+    from repro_torch.examples import mriq_offload
+    from repro_torch.telemetry.nvml import check_window
+    t0 = time.perf_counter()
+    log(f"[patterns] {smi}: MRI-Q's offload patterns at "
+        f"{mriq_offload.N_VOX} voxels x {mriq_offload.N_K} k-points, the "
+        f"CPU-only leg and the full nest's card window Fig. 5's")
+    out = mriq_offload.run(source=source, fig5=fig5,
+                           log=lambda m: log(f"[patterns] {m}"))
+    for r in out["rows"]:
+        if r["name"] not in ("cpu_only", "full_nest_batched"):
+            check_window(f"patterns {r['name']} card window",
+                         r["card_counter"])
+    out["seconds"] = time.perf_counter() - t0
+    log(f"[patterns] selected {out['selected']}"
+        + (f", tie with {', '.join(out['tie'])}" if out["tie"] else "")
+        + f"; phase {out['seconds']:.1f} s (budget {PATTERN_BUDGET_S:.0f} "
+        f"s); {smi}")
+    log("patterns " + json.dumps(
+        {"selected": out["selected"], "tie": out["tie"], "smi": smi,
+         "rows": [{k: v for k, v in r.items() if k != "card_counter"}
+                  for r in out["rows"]]}))
+    if out["seconds"] > PATTERN_BUDGET_S:
+        raise RuntimeError(f"patterns: {out['seconds']:.1f} s, over its "
+                           f"{PATTERN_BUDGET_S:.0f}-s budget")
+    return out
+
+
+def phase_reports(files: dict) -> None:
+    """The fleet phase's ledger and spans rendered on the host through the
+    port's own readers (``repro_torch.scripts.power_report`` and
+    ``trace_report``), as a user reads them."""
+    import contextlib
+    import io
+    from repro_torch.scripts import power_report, trace_report
+    for main, argv, want in (
+            (power_report.main, ["--ledger", str(files["ledger"])],
+             "by tenant:"),
+            (trace_report.main, ["--trace", str(files["spans"]),
+                                 "--metrics", str(files["metrics"])],
+             "attributed Ws by phase")):
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            main(argv)
+        text = buf.getvalue()
+        for line in text.splitlines():
+            log(f"[reports] {line}")
+        if want not in text:
+            raise RuntimeError(f"reports: {main.__module__} {argv} printed "
+                               f"no '{want}'")
 
 
 def init_weights(model, seed: int):
@@ -1722,13 +1803,13 @@ def phase_fleet(model, params, source) -> dict:
              "wall_s": wall_b, "t_step_s": t_step, "step_s": step_s,
              "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
              "plan_migrations": len(node.loop.plan_migrations)}
-    out = {"cli": cli, "drift": drift,
+    out = {"cli": cli, "drift": drift, "files": files,
            "budget_ws": FLEET_BUDGET_WS,
            "wall_s": time.perf_counter() - t0}
     log(f"[fleet] phase: {out['wall_s']:.1f} s; peak device memory "
         f"{cli['peak_gb']:.2f} GB (cli), {drift['peak_gb']:.2f} GB (drift "
         f"run and its trials)")
-    log("fleet " + json.dumps(out))
+    log("fleet " + json.dumps(out, default=str))
     return out
 
 
@@ -1737,9 +1818,9 @@ def run_path(arch: str, counters: dict, seeds=(0,), before=None,
     """One model's path under the offload plan: its weights on the card,
     prefill + decode against the forward for each of ``seeds`` (the serve
     phase keeps the first), then serving.  The launch counts are set to 0
-    just before and read just after; ``before()`` (the Fig. 5 phase) runs
-    first and ``after(model, params)`` (the offload search) last on the
-    path, both counted.  Returns the counts, the model and its weights."""
+    just before and read just after; ``before()`` (the Fig. 5 and pattern
+    phases) runs first and ``after(model, params)`` (the offload search)
+    last on the path, both counted.  Returns the counts, the model and its weights."""
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
     for k in counters.values():
@@ -1785,11 +1866,12 @@ def run_fleet(model, params, source, counters: dict) -> dict:
         f"call at {model.cfg.n_layers})")
     for k in counters.values():
         k.launches = 0
-    phase_fleet(Model(cfg, model.plan, model.device), params, source)
+    out = phase_fleet(Model(cfg, model.plan, model.device), params, source)
     launches = {name: k.launches for name, k in counters.items()}
     log("kernels fleet " + json.dumps(launches))
     if not launches["swiglu"]:
         raise RuntimeError(f"fleet: swiglu never launched ({launches})")
+    phase_reports(out["files"])
     return launches
 
 
@@ -3281,7 +3363,8 @@ def main() -> int:
         path = run_path(
             arch, counters,
             seeds=PREFILL_SEEDS if qwen else (0,),
-            before=(lambda: phase_fig5(source)) if qwen else None,
+            before=(lambda: phase_patterns(phase_fig5(source), source,
+                                           card["smi"])) if qwen else None,
             after=(lambda m, p: phase_offload(m, p, source)) if qwen
             else None)
         for name, n in path["launches"].items():

@@ -93,13 +93,15 @@ class OffloadLeg:
         return dict(zip(PARTS, parts + [ev[0].elapsed_time(ev[3]) / 1e3]))
 
 
-def _max_err(got, want) -> float:
+def max_err(got, want, what: str = "mriq offloaded leg") -> float:
+    """The largest |got - want| over (Qr, Qi); raises where ``got`` is not
+    finite or misses ``want`` by more than ``TOL``."""
     err = 0.0
     for g, w in zip(got, want):
         d = (g - w).abs()
         if not bool(torch.isfinite(g).all()) or \
                 bool((d > TOL[0] + TOL[1] * w.abs()).any()):
-            raise RuntimeError(f"mriq offloaded leg: max_err "
+            raise RuntimeError(f"{what}: max_err "
                                f"{float(d.max()):.3e} over atol {TOL[0]} + "
                                f"rtol {TOL[1]}*|CPU-only|")
         err = max(err, float(d.max()))
@@ -108,15 +110,20 @@ def _max_err(got, want) -> float:
 
 def run(device: DeviceLike = None, source=None, n_vox: int = N_VOX,
         n_k: int = N_K, seed: int = 0, legs: int = LEGS,
-        window_s: float = WINDOW_S,
+        window_s: float = WINDOW_S, host: list | None = None,
         log: Callable[[str], None] = print) -> dict:
     """Both legs and the card-draw window; ``source`` is the offloaded
-    device's ``PowerSource`` (an ``NvmlSource`` on the card by default).
-    Returns the rows, the comparison and the numbers behind them."""
+    device's ``PowerSource`` (an ``NvmlSource`` on the card by default),
+    ``host`` the seven ``ops.mriq`` inputs on the host
+    (``ref.mriq_inputs(seed, n_vox, n_k)`` by default).  Returns the rows,
+    the comparison and the numbers behind them, and the CPU-only leg's
+    (Qr, Qi) as ``cpu_q``."""
     dev = resolve_device(device)
     source = source if source is not None else NvmlSource(dev)
     node = R740_ARRIA10
-    host = ref.mriq_inputs(seed, n_vox, n_k)
+    if host is None:
+        host = ref.mriq_inputs(seed, n_vox, n_k)
+    n_vox, n_k = host[4].shape[0], host[0].shape[0]
     card = getattr(source, "name", type(source).__name__)
     limit = getattr(source, "power_limit_w", None)
 
@@ -125,7 +132,11 @@ def run(device: DeviceLike = None, source=None, n_vox: int = N_VOX,
         torch.cuda.synchronize(dev)
     idle = sample_window(source, lambda: time.sleep(0.1), seconds=window_s)
 
-    # CPU-only leg, sampled at the paper's CPU-only node point
+    # CPU-only leg, sampled at the paper's CPU-only node point, after a
+    # warm-up on its first rows: torch 2.13's CPU build was seen to compute
+    # one thread's share of a process's first cos/sin call less closely
+    # (1.5e-4 against 3.6e-8 at arguments of ~300 rad)
+    ops.mriq(*host[:4], *(a[:ref.MRIQ_ROWS] for a in host[4:]))
     box: list = []
     _, cpu_trace = PowerSampler(ConstantSource(node.p_cpu_active)) \
         .sample_during(lambda: box.append(ops.mriq(*host)))
@@ -135,7 +146,7 @@ def run(device: DeviceLike = None, source=None, n_vox: int = N_VOX,
     leg = OffloadLeg(host, dev)
     leg()                                       # warm-up
     timed = [leg() for _ in range(legs)]
-    err = _max_err(leg.out, want)
+    err = max_err(leg.out, want)
     stats = {}
     for part in PARTS:
         v = sorted(t[part] for t in timed)
@@ -159,7 +170,8 @@ def run(device: DeviceLike = None, source=None, n_vox: int = N_VOX,
            "offload_parts": stats, "legs": legs, "max_abs_err": err,
            "card_legs": win.calls, "card_window_s": win.seconds,
            "card_w": win.watts, "card_leg_s": card_s, "card_ws": card_ws,
-           "card_counter": win.counter, "comparison": cmp.to_dict()}
+           "card_counter": win.counter, "comparison": cmp.to_dict(),
+           "cpu_q": want}
     label = f"offloaded(card-only draw: {card} at {limit} W limit)"
     out["rows"] = [
         "table,destination,seconds,node_watts,watt_seconds",
@@ -197,7 +209,7 @@ def run(device: DeviceLike = None, source=None, n_vox: int = N_VOX,
 def main() -> int:
     out = run()
     print(json.dumps({k: v for k, v in out.items()
-                      if k not in ("rows", "text")}))
+                      if k not in ("rows", "text", "cpu_q")}))
     return 0
 
 

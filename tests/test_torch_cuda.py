@@ -190,6 +190,26 @@ def test_mriq_kernel_ragged_and_against_f64(cuda, n, m):
     _mriq_checks(ref.mriq_inputs(n + m, n, m, device="cuda"))
 
 
+def test_mriq_offload_patterns_on_the_card(cuda):
+    """The MRI-Q pattern search's card paths at a small, ragged size:
+    pinned copies, the naive pattern's aligned one-voxel launches, the trig
+    pattern's device blocks and host sums, phiMag on the card; every
+    pattern's (Qr, Qi) within ``bench_mriq.TOL`` of the CPU-only leg
+    (``run`` raises otherwise), the naive voxel's parts timed."""
+    from repro_torch.examples import mriq_offload
+    from repro_torch.telemetry.sampler import ConstantSource
+    MQ.KERNEL.launches = 0
+    out = mriq_offload.run(cuda, ConstantSource(111.0), n_vox=4099, n_k=97,
+                           naive_voxels=70, window_s=0.05,
+                           log=lambda m: None)
+    rows = {r["name"]: r for r in out["rows"]}
+    assert list(rows) == list(mriq_offload.NOTES)
+    assert set(rows["naive_per_voxel"]["voxel_parts"]) == \
+        {"host", "h2d", "kernel", "d2h"}
+    assert all(r["seconds"] > 0 for r in rows.values())
+    assert MQ.KERNEL.launches >= 70 + 64
+
+
 @pytest.mark.parametrize("n,m", [(4099, 3072), (1000, 97)])
 def test_mriq_kernel_large_phase(cuda, n, m):
     """Coordinates scaled until |t| reaches 2^12 turns: the turn reduction

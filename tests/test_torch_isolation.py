@@ -13,7 +13,10 @@ from repro_torch.serve.engine import ServeLoop
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "scripts" / "kernel_ab.py"]
+#: the user-facing entry points outside the package: each that imports
+#: the reference has a module of the same name in the port
+ENTRY_DIRS = ("examples", "scripts")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -58,7 +61,12 @@ def test_the_scan_sees_the_whole_port():
             "src/repro_torch/core/transfer.py",
             "src/repro_torch/core/roofline.py",
             "src/repro_torch/core/backends.py",
-            "src/repro_torch/core/adapt.py"} <= names
+            "src/repro_torch/core/adapt.py",
+            "src/repro_torch/examples/mriq_offload.py",
+            "src/repro_torch/examples/adapt_flow.py",
+            "src/repro_torch/scripts/power_report.py",
+            "src/repro_torch/scripts/hillclimb.py",
+            "scripts/kernel_ab.py"} <= names
     assert _forbidden("jax.numpy") and _forbidden("repro.models")
     assert not _forbidden("repro_torch.models")
 
@@ -100,6 +108,29 @@ def test_every_reference_module_has_a_counterpart():
                                           p.relative_to(ref).as_posix())
                        ).is_file()]
     assert not missing, missing
+
+
+def _imports_the_reference(path: Path) -> bool:
+    return any(m.split(".")[0] == "repro" for m in _imported_modules(path))
+
+
+@pytest.mark.parametrize("folder", ENTRY_DIRS)
+def test_every_reference_entry_point_has_a_counterpart(folder):
+    """Each ``examples/*.py`` and ``scripts/*.py`` that imports ``repro``
+    runs in the port as ``python -m repro_torch.<folder>.<name>``."""
+    entry = sorted(p for p in (ROOT / folder).glob("*.py")
+                   if _imports_the_reference(p))
+    assert entry, f"no entry point of {folder}/ imports the reference"
+    port = ROOT / "src" / "repro_torch" / folder
+    missing = [p.name for p in entry if not (port / p.name).is_file()]
+    assert not missing, missing
+
+
+def test_the_entry_point_scan_reads_the_imports():
+    assert _imports_the_reference(ROOT / "examples" / "mriq_offload.py")
+    assert _imports_the_reference(ROOT / "scripts" / "hillclimb.py")
+    assert not _imports_the_reference(ROOT / "scripts" / "kernel_ab.py")
+    assert not _imports_the_reference(ROOT / "scripts" / "perf_gate.py")
 
 
 def test_unsupported_devices_are_refused():
