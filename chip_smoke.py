@@ -194,18 +194,19 @@ a non-zero exit and no result line:
               recurrentgemma-9b at published width (TRAIN_LAYERS: depth
               cut, logged "layers L of N"), one model's weights at a time:
               the stock plan's first step (loss and gradient norm) in f32
-              and bf16, then TRAIN_STEPS AdamW steps under the offload
-              plan on SyntheticLM batches at train_4k_b4 (the configs'
-              remat="full", microbatches=4), finite, the first within
-              max(2^-8, BF16_GAP_SLACK x the stock bf16 gap) of the f32
-              stock step, with step times and peak memory; the measured
+              and bf16, then AdamW steps under the offload plan on
+              SyntheticLM batches at train_4k_b4 (TRAIN_STEPS: 4, cut to
+              2 where a step takes ~11 s, logged "steps S of 4"; the
+              configs' remat="full", microbatches=4), finite, the first
+              within max(2^-8, BF16_GAP_SLACK x the stock bf16 gap) of the
+              f32 stock step, with step times and peak memory; the measured
               rung's train trial at train_4k_b4 (s, W, Ws a step, its NVML
               window checked) beside the analytic estimate; each path's
               kernels must launch; last, ``launch.train.run`` on tiny-lm
-              in a child process with deterministic algorithms (12 steps,
-              a checkpoint every 4, a failure at step 6, a resume): the
-              resumed losses equal the uninterrupted run's bit for bit and
-              the loss falls;
+              in a child process with deterministic algorithms (8 steps,
+              cut from 12 for the run's time, a checkpoint every 4, a
+              failure at step 6, a resume): the resumed losses equal the
+              uninterrupted run's bit for bit and the loss falls;
  10. pod      the pod-scale half, counted as a path of its own (the
               rules step's launches: flash_attention and swiglu must each
               launch once a layer, microbatch and remat pass), in at most
@@ -346,6 +347,10 @@ PATH_KERNELS = {"qwen2-7b": ("mriq", "flash_attention", "swiglu"),
                 "llama3-405b": ("flash_attention", "swiglu"),
                 "internvl2-76b": ("flash_attention", "swiglu"),
                 "hubert-xlarge": ("flash_attention",)}
+#: the whole run's wall-time hold, under a 900-s call on the card: a new
+#: on-card phase pays for its time with a logged cut of depth, steps or
+#: repetitions
+RUN_HOLD_S = 840.0
 #: the three models driven through serving, Fig. 5, the search and the fleet
 MODEL_PATHS = ("qwen2-7b", "mamba2-1.3b", "recurrentgemma-9b")
 #: the seven archs of the MoE / LayerNorm / front-end slice at their
@@ -1382,12 +1387,15 @@ def profile_serve(model, params, wall_s: float) -> None:
     """Where the card's time goes while the 8 requests are served: the
     serve phase again, with no meter, under torch.profiler.  Busy share =
     device time of every kernel and copy over the profiled window's wall
-    time (one stream, so they do not overlap)."""
+    time (one stream, so they do not overlap).  The card's activity only
+    (its kernels and copies, and the CUDA runtime calls): the window
+    launches ~2 x 10^5 kernels, and recording every operator on the host
+    as well stretched the window 2.7x and multiplied the events that
+    ``key_averages`` reduces on the host."""
     from torch.profiler import ProfilerActivity, profile
     loop = serve_loop(model, params)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         loop.run()
         torch.cuda.synchronize()
@@ -1449,8 +1457,13 @@ OFFLOAD_SLO_S = 0.5
 OFFLOAD_SHAPE = "prefill_32k_b1"
 #: the search's depth: the first layers of the loaded weights (shared, not
 #: copied), cut from 28 for the run's time: each stock-attention finalist
-#: takes ~20 s a 32k prefill at 28 layers (~10 s at 14), four calls a trial
+#: takes ~20 s a 32k prefill at 28 layers (~10 s at 14)
 OFFLOAD_LAYERS = 7
+#: calls a trial after its warm-up, at least (the rung's default 3), cut for
+#: the run's time: a stock-attention finalist's 5.4-s prefill outlasts the
+#: 5-s window alone (its three calls spread 0.04 %), and a kernel plan's
+#: 0.73-s prefill still fills the window with 7
+OFFLOAD_MIN_CALLS = 1
 
 
 class Recorded:
@@ -1493,14 +1506,16 @@ def phase_offload(model, params, source) -> dict:
                                            plan_kernels, plan_tag)
     from repro_torch.core.destinations import Requirement
     from repro_torch.core.verifier import RungPolicy
-    from repro_torch.telemetry.nvml import check_window
+    from repro_torch.telemetry.nvml import WINDOW_S, check_window
     params, cfg = first_layers(params, model.cfg, OFFLOAD_LAYERS)
     log(f"[offload] {cfg.name}: layers {OFFLOAD_LAYERS} of "
         f"{model.cfg.n_layers} (cut for the run's time: a stock-attention "
-        f"finalist takes ~20 s a prefill at {model.cfg.n_layers})")
+        f"finalist takes ~20 s a prefill at {model.cfg.n_layers}); at least "
+        f"{OFFLOAD_MIN_CALLS} of 3 calls a trial after its warm-up (cut for "
+        f"the run's time: the window takes what fills {WINDOW_S:.0f} s)")
     t0 = time.perf_counter()
     rung = Recorded(MeasuredBackend(source=source, params={cfg.name: params},
-                                    log=log))
+                                    log=log, min_calls=OFFLOAD_MIN_CALLS))
     rep = adapt(cfg, OFFLOAD_SHAPE,
                 requirement=Requirement(max_seconds=OFFLOAD_SLO_S),
                 rungs=RungPolicy(search="analytic", finalist="measured",
@@ -2692,7 +2707,15 @@ TRAIN_LAYERS = {
 #: the reference's train_4k (4096 x 256) with the batch cut to 4: under
 #: the configs' own remat="full", microbatches=4, one sequence a microbatch
 TRAIN_SHAPE = "train_4k_b4"
-TRAIN_STEPS = 4
+#: AdamW steps under the offload plan (the first held against the stock
+#: f32 step), of TRAIN_STEPS_OF; cut where a step takes ~11 s (the plain
+#: SSD and RG-LRU backwards), for the run's time
+TRAIN_STEPS_OF = 4
+TRAIN_STEPS = {
+    "qwen2-7b": (4, ""),
+    "mamba2-1.3b": (2, "~11 s a step, for the run's time"),
+    "recurrentgemma-9b": (2, "~11 s a step, for the run's time"),
+}
 #: the kernels each train path must launch
 TRAIN_KERNELS = {"qwen2-7b": ("flash_attention", "swiglu"),
                  "mamba2-1.3b": ("ssd",),
@@ -2704,8 +2727,11 @@ TRAIN_FLOOR = 2.0 ** -8
 #: card: the same code on the same inputs, so bit for bit; where not, at
 #: most this share of the gradient's largest element
 GRAD_REL = 1e-6
-#: the tiny-lm CLI run: 12 steps, a checkpoint every 4, a failure at 6
-CLI_STEPS, CLI_EVERY, CLI_FAIL = 12, 4, 6
+#: the tiny-lm CLI run: 8 steps (of CLI_STEPS_OF, cut for the run's time:
+#: each checkpoint writes tiny-lm's f32 weights and AdamW moments, about
+#: 1.4 GB), a checkpoint every 4, a failure at 6
+CLI_STEPS, CLI_EVERY, CLI_FAIL = 8, 4, 6
+CLI_STEPS_OF = 12
 
 
 def timed_backward(fn, args, cots, reps: int) -> float:
@@ -2883,15 +2909,15 @@ def phase_functions() -> dict:
     return rows
 
 
-def train_batches(cfg, shape) -> list:
-    """TRAIN_STEPS batches of the synthetic pipeline at ``shape``, on the
-    card."""
+def train_batches(cfg, shape, n: int) -> list:
+    """The first ``n`` batches of the synthetic pipeline at ``shape``, on
+    the card."""
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=shape.seq_len,
                                   global_batch=shape.global_batch))
     return [{k: torch.from_numpy(v).cuda() for k, v in data.batch(i).items()}
-            for i in range(TRAIN_STEPS)]
+            for i in range(n)]
 
 
 def first_step(model, params, batch) -> tuple:
@@ -2908,11 +2934,11 @@ def run_train_path(arch: str, counters: dict, source, smi: str) -> dict:
     """One model's train path at published width, depth cut as
     TRAIN_LAYERS says: random weights (seed 0) on the card; the first
     step's loss and gradient norm under the stock plan in f32 and bf16
-    compute; then, with the launch counts set to 0, TRAIN_STEPS steps of
-    AdamW under the offload plan on SyntheticLM batches at TRAIN_SHAPE
-    (the first held against the f32 stock step), and the measured rung's
-    train trial at the same shape beside the analytic estimate; the
-    counts read after."""
+    compute; then, with the launch counts set to 0, TRAIN_STEPS[arch]
+    steps of AdamW under the offload plan on SyntheticLM batches at
+    TRAIN_SHAPE (the first held against the f32 stock step), and the
+    measured rung's train trial at the same shape beside the analytic
+    estimate; the counts read after."""
     import dataclasses
     import gc
     from repro_torch.configs import get_config
@@ -2925,16 +2951,20 @@ def run_train_path(arch: str, counters: dict, source, smi: str) -> dict:
     t_start = time.perf_counter()
     pub = get_config(arch)
     layers, why = TRAIN_LAYERS[arch]
+    steps, steps_why = TRAIN_STEPS[arch]
     cfg = dataclasses.replace(pub, n_layers=layers)
     shape = get_shape(TRAIN_SHAPE)
     log(f"[train] {arch}: layers {layers} of {pub.n_layers}"
-        + (f" ({why})" if why else "") + f"; {TRAIN_SHAPE} ({shape.global_batch}"
+        + (f" ({why})" if why else "") + f"; steps {steps} of "
+        f"{TRAIN_STEPS_OF}" + (f" ({steps_why})" if steps_why else "")
+        + f"; {TRAIN_SHAPE} ({shape.global_batch}"
         f" x {shape.seq_len}), remat {cfg.plan.remat}, microbatches "
         f"{cfg.plan.microbatches}, {cfg.optimizer}; {smi}")
-    batches = train_batches(cfg, shape)
+    batches = train_batches(cfg, shape, steps)
     stock = Model(cfg)
     params = init_weights(stock, 0)
-    out: dict = {"layers": layers, "of": pub.n_layers}
+    out: dict = {"layers": layers, "of": pub.n_layers, "steps": steps,
+                 "steps_of": TRAIN_STEPS_OF}
     for label, plan in (("stock_f32", cfg.plan.replace(
             compute_dtype="float32")), ("stock", cfg.plan)):
         torch.cuda.synchronize()
@@ -2979,7 +3009,7 @@ def run_train_path(arch: str, counters: dict, source, smi: str) -> dict:
             raise RuntimeError(f"{arch}: first step {what} {got} is "
                                f"{abs(got - want):.3e} from the stock f32 "
                                f"step's {want} (limit {limit:.3e})")
-    log(f"[train] {arch} offload plan, {TRAIN_STEPS} AdamW steps: losses "
+    log(f"[train] {arch} offload plan, {steps} AdamW steps: losses "
         + ", ".join(f"{v:.4f}" for v in losses) + "; grad norms "
         + ", ".join(f"{v:.4f}" for v in norms) + "; step s "
         + ", ".join(f"{v:.3f}" for v in seconds)
@@ -3099,7 +3129,8 @@ def phase_train_cli() -> dict:
                            f"({res['launches']})")
     res["seconds"] = time.perf_counter() - t0
     log(f"[train-cli] tiny-lm, offload plan, deterministic: {CLI_STEPS} "
-        f"steps, failure at {CLI_FAIL}, resumed from step "
+        f"steps of {CLI_STEPS_OF} (cut for the run's time), failure at "
+        f"{CLI_FAIL}, resumed from step "
         f"{res['resumed_steps'][0]}: resumed losses equal the uninterrupted "
         f"run's bit for bit; loss {first:.4f} -> {last:.4f} (mean of the "
         f"first and last 4); launches {json.dumps(res['launches'])}; "
@@ -3205,7 +3236,7 @@ def phase_pod(counters: dict, smi: str) -> dict:
     pub = get_config("qwen2-7b")
     cfg = dataclasses.replace(pub, n_layers=POD_LAYERS)
     plan = cfg.plan.replace(**OFFLOAD, fused_grad_reduce=True)
-    batch = train_batches(cfg, get_shape(TRAIN_SHAPE))[0]
+    batch = train_batches(cfg, get_shape(TRAIN_SHAPE), 1)[0]
     # the kernels' forwards, in each microbatch and again in its remat
     # recompute; the backwards are the plain versions
     want = POD_LAYERS * plan.microbatches * (2 if plan.remat == "full" else 1)
@@ -3346,9 +3377,15 @@ def main() -> int:
               file=sys.stderr)
         return 1
     t_start = time.perf_counter()
+
+    def mark(what: str) -> None:
+        log(f"[time] {what}: {time.perf_counter() - t_start:.1f} s since "
+            f"the start")
     card = phase_card()
     phase_build()
+    mark("build")
     rows = phase_kernels()
+    mark("kernels")
 
     counters = {"mriq": mriq.KERNEL, "flash_attention": flash_attention.KERNEL,
                 "swiglu": swiglu.KERNEL, "ssd": ssd.KERNEL,
@@ -3357,6 +3394,7 @@ def main() -> int:
     source = NvmlSource(torch.device("cuda"))
     log(f"[nvml] {source.describe()} (bus {source.bus_id})")
     phase_calibrate(source)
+    mark("calibrate")
 
     for arch in MODEL_PATHS:            # one model's weights at a time
         qwen = arch == "qwen2-7b"
@@ -3381,11 +3419,13 @@ def main() -> int:
             phase_plans(path["model"], path["params"], source)
             log("kernels plans " + json.dumps(
                 {name: k.launches for name, k in counters.items()}))
+            mark("qwen2-7b's path before its serve profile")
             profile_serve(path["model"], path["params"], path["wall_s"])
         if arch == "mamba2-1.3b":
             profile_prefill(path["model"], path["params"], path["prefill_s"])
         del path
         torch.cuda.empty_cache()
+        mark(f"{arch}'s path")
     # the vectorized fleet as a path of its own: it runs none of the five
     # kernels (its device work is stock torch ops), so its counts stay 0
     for k in counters.values():
@@ -3393,6 +3433,7 @@ def main() -> int:
     phase_fleet_scale()
     log("kernels fleet-scale " + json.dumps(
         {name: k.launches for name, k in counters.items()}))
+    mark("fleet scale")
     t_archs = time.perf_counter()
     for arch in ARCH_LAYERS:            # one arch's weights at a time
         out = run_arch(arch, counters, card["smi"])
@@ -3404,6 +3445,7 @@ def main() -> int:
     log(f"[arch] the seven archs: {time.perf_counter() - t_archs:.1f} s")
     t_train = time.perf_counter()
     phase_functions()
+    mark("the train Functions")
     for arch in TRAIN_LAYERS:           # one model's weights at a time
         out = run_train_path(arch, counters, source, card["smi"])
         for name, n in out["launches"].items():
@@ -3419,7 +3461,8 @@ def main() -> int:
     for name, n in pod["launches"].items():
         launches[name] += n
     log("kernels " + json.dumps(launches))
-    log(f"[done] {time.perf_counter() - t_start:.1f} s")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s (hold {RUN_HOLD_S:.0f}"
+        f" s)")
 
     kernels = []
     for name, (src, replaces) in SOURCES.items():

@@ -48,6 +48,7 @@ from typing import Callable, Optional, Protocol, runtime_checkable
 import numpy as np
 import torch
 
+from repro_torch.artifacts import DRYRUN, MEASURED, REPO_ROOT
 from repro_torch.configs.base import ArchConfig, PlanConfig, ShapeSpec, \
     get_shape
 from repro_torch.core.fitness import TIMEOUT_PENALTY_S, TIMEOUT_SECONDS, \
@@ -61,8 +62,6 @@ from repro_torch.telemetry.nvml import WINDOW_S, NvmlSource, \
 from repro_torch.telemetry.sampler import synthesize_phase_trace
 from repro_torch.telemetry.trace import PowerTrace
 
-REPO_ROOT = Path(__file__).resolve().parents[3]
-ART_MEASURED = REPO_ROOT / "artifacts" / "measured"
 
 #: plan gene -> the kernel its 'pallas' destination launches
 PLAN_KERNELS = {"attn_impl": flash_attention.KERNEL,
@@ -640,7 +639,7 @@ class CompiledBackend:
     # stages (build/trace/analyze) are CPU work and fall back to
     # ``envelope``; an ``execute`` stage would draw the accelerated point
     stage_envelopes: Optional[dict] = None
-    art_dir: Path = REPO_ROOT / "artifacts" / "dryrun"
+    art_dir: Path = DRYRUN
     multi_pod: bool = False             # the 2-pod production mesh
     record_trace: bool = True
     # injectable trial runner (tests stub the subprocess out); signature
@@ -783,7 +782,7 @@ class ReplayBackend:
 
     name = "replay"
 
-    root: Path = ART_MEASURED
+    root: Path = MEASURED
     default: Optional[Path] = None
     mesh_name: str = "card"
 

@@ -27,12 +27,13 @@ from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Optional
 
+from repro_torch.artifacts import DRYRUN
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.core.intensity import estimate_program
 from repro_torch.core.power import H100, PowerModel
 from repro_torch.launch.mesh import POD_SHAPE
 
-ART = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun"
+ART = DRYRUN
 
 
 @dataclass

@@ -47,8 +47,10 @@ sidecar (``<key>.stages.json``) — per-stage wall-clock timestamps plus the
 utilization the process's CPU clock measured — which the parent samples
 into a phase-marked power trace.
 
-Results are JSON-cached under artifacts/dryrun/; reruns are incremental,
-and a malformed or stale cache file falls back to running the cell again.
+Results are JSON-cached under artifacts/torch/dryrun/ (``repro_torch.
+artifacts``; the JAX package keeps its own records in artifacts/dryrun/);
+reruns are incremental, and a malformed or stale cache file falls back to
+running the cell again.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-7b --shape decode_32k
@@ -67,7 +69,9 @@ from contextlib import contextmanager
 from pathlib import Path
 from typing import Optional
 
-ART = Path(__file__).resolve().parents[3] / "artifacts" / "dryrun"
+from repro_torch.artifacts import DRYRUN
+
+ART = DRYRUN
 
 #: ranks of the fake process group: one pod, or two
 WORLD = {False: 256, True: 512}

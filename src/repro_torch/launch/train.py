@@ -10,7 +10,9 @@ Counterpart of ``repro.launch.train``: runs the fault-tolerant driver on
 learnable data, the arch's optimizer, periodic atomic checkpoints,
 straggler accounting, optional failure injection (to demo
 checkpoint-restart end to end: the run stops at the failure, and a second
-run with ``--resume`` continues from the last checkpoint).
+run with ``--resume`` continues from the last checkpoint).  Checkpoints
+go to ``--ckpt-dir``, by default ``artifacts/torch/train_ckpt`` (the
+reference's CLI keeps ``artifacts/train_ckpt``).
 ``run(args, model=None)`` is the library entry; ``model`` trains a model
 the caller built (its own plan and device; ``args.device`` is then not
 read).
@@ -25,6 +27,7 @@ import time
 from pathlib import Path
 from typing import Optional
 
+from repro_torch.artifacts import TRAIN_CKPT
 from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.ft.driver import FailureInjector, TrainDriver
@@ -40,7 +43,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--steps", type=int, default=200)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
-    ap.add_argument("--ckpt-dir", default="artifacts/train_ckpt")
+    ap.add_argument("--ckpt-dir", default=str(TRAIN_CKPT))
     ap.add_argument("--ckpt-every", type=int, default=50)
     ap.add_argument("--fail-at", type=int, nargs="*", default=[],
                     help="inject failures at these steps (demo FT)")

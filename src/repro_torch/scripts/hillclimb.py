@@ -12,8 +12,9 @@ roofline terms of ``PowerModel(H100)`` over the estimate at a pod's
 16-way model axis, before and after.  ``--arch`` and ``--shape`` take the
 cells of that arch or shape; ``--extra`` adds the reference's two follow-up
 probes (A4-A5, C4), which it gates on ``HC_EXTRA_A`` / ``HC_EXTRA``.  The
-log goes to ``artifacts/hillclimb/hillclimb_log.json``.  Does no device
-work: the dry run traces on the meta device.
+log goes to ``artifacts/torch/hillclimb/hillclimb_log.json`` (the repo's
+own script writes ``artifacts/hillclimb/``).  Does no device work: the dry
+run traces on the meta device.
 """
 from __future__ import annotations
 

@@ -9,10 +9,11 @@ group (everything on the meta device), its collective bytes the
 ``core/transfer.py`` census of what the step issues, and the terms
 ``PowerModel(H100)``'s over ``core.intensity.estimate_program`` at a pod's
 16-way model axis.  The arch's plan's record is read from the dry run's
-cache (``artifacts/dryrun/``) or run when it is missing.  ``--arch`` and
-``--shape`` take a subset of the cells.  The rows go to
-``artifacts/hillclimb/fleet_optimized.json``.  Does no device work: the
-dry run traces on the meta device.
+cache (``artifacts/torch/dryrun/``) or run when it is missing.  ``--arch``
+and ``--shape`` take a subset of the cells.  The rows go to
+``artifacts/torch/hillclimb/fleet_optimized.json`` (the repo's own script
+writes ``artifacts/hillclimb/``).  Does no device work: the dry run traces
+on the meta device.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ import statistics
 from pathlib import Path
 from typing import Callable, Optional
 
+from repro_torch.artifacts import HILLCLIMB
 from repro_torch.configs import SHAPES, get_config, list_archs
 from repro_torch.configs.optimized import optimized_plan
 from repro_torch.core.intensity import estimate_program
@@ -34,7 +36,7 @@ CHIPS = 256
 POWER = PowerModel(H100)
 #: a pod's model axis, which the reference's estimate takes by default
 POD_TP = POD_SHAPE[1]
-OUT = Path(__file__).resolve().parents[3] / "artifacts" / "hillclimb"
+OUT = HILLCLIMB
 
 
 def terms(rec: dict, cfg, shape, plan, power: PowerModel) -> dict:

@@ -809,19 +809,27 @@ def _layer_norms(grads: dict, n_layers: int) -> list:
     return [v ** 0.5 for v in sums]
 
 
+#: the stock bf16 step's chunk lengths for the C4 hold: ``ssd_chunked``
+#: at each sums in f32 in another order, so the bf16 steps' spread over
+#: them is the spread the stock function itself admits
+C4_CHUNKS = (256, 128, 64)
+
+
 def test_mamba2_first_step_grad_norm_at_24_layers(cuda):
     """ROADMAP C4: mamba2-1.3b at its published width, 24 of 48 layers,
     random weights from one init, one microbatch (1 x 4096) of
     train_4k_b4.  The first step's gradient norm under the offload plan
-    (the ssd kernel) must lie within chip_smoke.py's hold of the stock f32
-    step's: max(2^-8 |f32|, 1.25 x the stock bf16 step's gap).  On this
-    path the offload plan differs from the stock bf16 plan only in the
-    ssd kernel against ``ssd_chunked``.  Prints the norms per layer and
-    in total, and the first layer whose norm leaves the same hold; and,
-    to read how far the norm moves with the f32 sums alone, three probes
-    beside the held plans: the offload step again, the stock bf16 step at
-    chunk 128 (the same function, its f32 sums in another order) and the
-    offload plan in f32 (the f32 kernel)."""
+    (the ssd kernel, the config's chunk 256) must lie within
+    max(2^-8 |f32|, 1.25 x max over c in C4_CHUNKS of |bf16_c - f32|) of
+    the stock f32 step's (chunk 256): chip_smoke.py's hold, with the stock
+    bf16 gap taken as the largest over the sum orders the stock function
+    admits instead of one sample.  On this path the offload plan differs
+    from the stock bf16 plan only in the ssd kernel against
+    ``ssd_chunked``.  Prints every norm per layer and in total, and the
+    first layer whose norm leaves the same hold; and three probes beside
+    the held plans: the offload step again, the offload step at chunk 128
+    (the kernel's own sum-order spread) and the offload plan in f32 (the
+    f32 kernel)."""
     import gc
     from repro_torch.configs.base import get_shape
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
@@ -829,6 +837,7 @@ def test_mamba2_first_step_grad_norm_at_24_layers(cuda):
                                         param_leaves)
     layers = 24
     cfg = dataclasses.replace(get_config("mamba2-1.3b"), n_layers=layers)
+    assert cfg.ssm_chunk == C4_CHUNKS[0]
     shape = get_shape("train_4k_b4")
     data = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size,
                                   seq_len=shape.seq_len,
@@ -841,9 +850,14 @@ def test_mamba2_first_step_grad_norm_at_24_layers(cuda):
     off = one.replace(attn_impl="pallas", mlp_impl="pallas",
                       ssm_impl="pallas", rglru_impl="pallas")
     f32 = dict(compute_dtype="float32")
-    runs = {"f32": (cfg, one.replace(**f32)), "bf16": (cfg, one),
+
+    def chunk(c):
+        return dataclasses.replace(cfg, ssm_chunk=c)
+    bf16 = [f"bf16 chunk {c}" for c in C4_CHUNKS]
+    runs = {"f32": (cfg, one.replace(**f32)),
+            **{label: (chunk(c), one) for label, c in zip(bf16, C4_CHUNKS)},
             "offload": (cfg, off), "offload again": (cfg, off),
-            "bf16 chunk 128": (dataclasses.replace(cfg, ssm_chunk=128), one),
+            "offload chunk 128": (chunk(128), off),
             "offload f32": (cfg, off.replace(**f32))}
     total, per_layer = {}, {}
     for label, (c, plan) in runs.items():
@@ -856,26 +870,34 @@ def test_mamba2_first_step_grad_norm_at_24_layers(cuda):
         del grads
         gc.collect()
         torch.cuda.empty_cache()
-    for a, b in (("offload again", "offload"), ("bf16 chunk 128", "bf16"),
-                 ("offload f32", "f32")):
+    for a, b in (("offload again", "offload"),
+                 ("offload chunk 128", "offload"),
+                 ("offload f32", "f32"),
+                 *((label, "f32") for label in bf16)):
         print(f"C4 probe: {a} {total[a]:.6f} against {b} {total[b]:.6f}, "
               f"{abs(total[a] - total[b]) / total[b]:.3e} of it")
 
-    def hold(f32, bf16):
-        return max(TRAIN_FLOOR * abs(f32), BF16_GAP_SLACK * abs(bf16 - f32))
-    first = next((i for i, (o, f, b) in enumerate(zip(
-        per_layer["offload"], per_layer["f32"], per_layer["bf16"]))
-        if abs(o - f) > hold(f, b)), None)
-    for i, (o, f, b) in enumerate(zip(per_layer["offload"], per_layer["f32"],
-                                      per_layer["bf16"])):
-        print(f"C4 {'layer ' + str(i) if i < layers else 'rest'}: offload "
-              f"{o:.6f} f32 {f:.6f} bf16 {b:.6f} |offload - f32| "
-              f"{abs(o - f):.3e} hold {hold(f, b):.3e}")
-    limit = hold(total["f32"], total["bf16"])
-    msg = (f"C4 total: offload {total['offload']:.6f} f32 {total['f32']:.6f}"
-           f" bf16 {total['bf16']:.6f}; |offload - f32| "
-           f"{abs(total['offload'] - total['f32']):.3e}, limit {limit:.3e};"
-           f" first layer off its hold: {first}")
+    def hold(norms):
+        gap = max(abs(norms[label] - norms["f32"]) for label in bf16)
+        return max(TRAIN_FLOOR * abs(norms["f32"]), BF16_GAP_SLACK * gap)
+    layer = [{label: v[i] for label, v in per_layer.items()}
+             for i in range(layers + 1)]
+    first = next((i for i, n in enumerate(layer)
+                  if abs(n["offload"] - n["f32"]) > hold(n)), None)
+    for i, n in enumerate(layer):
+        print(f"C4 {'layer ' + str(i) if i < layers else 'rest'}: "
+              + " ".join(f"{label} {v:.6f}" for label, v in n.items())
+              + f"; |offload - f32| {abs(n['offload'] - n['f32']):.3e} "
+              f"hold {hold(n):.3e}")
+    limit = hold(total)
+    msg = ("C4 total: " + " ".join(f"{label} {v:.6f}"
+                                   for label, v in total.items())
+           + f"; |offload - f32| {abs(total['offload'] - total['f32']):.3e},"
+           f" |offload chunk 128 - f32| "
+           f"{abs(total['offload chunk 128'] - total['f32']):.3e}, limit "
+           f"{limit:.3e} = max(2^-8 |f32|, {BF16_GAP_SLACK} x the largest "
+           f"stock bf16 gap over chunks {C4_CHUNKS}); first layer off its "
+           f"hold: {first}")
     print(msg)
     assert abs(total["offload"] - total["f32"]) <= limit, msg
 
