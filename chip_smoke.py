@@ -80,7 +80,13 @@ a non-zero exit and no result line:
                        to finite logits, see PREFILL_F32);
               serve    ``ServeLoop`` (8 slots, max_seq 256) billing a
                        ``DecodeEnergyMeter`` at the accelerated R740 node
-                       point: 8 requests, 16 new tokens each;
+                       point: 8 requests, 16 new tokens each, every step a
+                       replay of the loop's captured decode graph; before
+                       the run, from the state after the first request's
+                       prompt has filled, GRAPH_STEPS replays held to the
+                       eager step on a copy of the cache (logits and every
+                       cache tensor bit for bit, else named and within
+                       GRAPH_REL), the capture's ms and its pool's bytes;
               offload  (qwen2-7b's path, on the first 7 of its 28 loaded
                        layers, OFFLOAD_LAYERS) the paper's offload search,
                        ``core.adapt`` at prefill_32k_b1: GA and narrowing
@@ -134,7 +140,8 @@ a non-zero exit and no result line:
                        last logits held to the other's (PREFILL_TOL);
                        (c) a 256-chip, 16-way TP context, which the
                        measured rung must refuse; the group destroyed;
-  6. profile  qwen2-7b's 8 requests served again, and one bf16 prefill of
+  6. profile  qwen2-7b's 8 requests served again (the graph captured
+              before the window), and one bf16 prefill of
               mamba2-1.3b, under torch.profiler: kernels by device time,
               the CUDA runtime calls by host time, and the device's busy
               share of each window;
@@ -190,13 +197,16 @@ a non-zero exit and no result line:
               version on the card (bit for bit, else GRAD_REL), the
               kernel's forward, the Function's backward and the plain
               graph's backward timed beside SDPA's / the cuBLAS chain's
-              forward and backward; then qwen2-7b, mamba2-1.3b and
+              forward and backward (rglru's also the device memory its
+              plain version keeps for the backward and its peak); then
+              qwen2-7b, mamba2-1.3b and
               recurrentgemma-9b at published width (TRAIN_LAYERS: depth
               cut, logged "layers L of N"), one model's weights at a time:
               the stock plan's first step (loss and gradient norm) in f32
               and bf16, then AdamW steps under the offload plan on
               SyntheticLM batches at train_4k_b4 (TRAIN_STEPS: 4, cut to
-              2 where a step takes ~11 s, logged "steps S of 4"; the
+              2 for mamba2-1.3b, whose step takes ~11 s, logged "steps S
+              of 4"; the
               configs' remat="full", microbatches=4), finite, the first
               within max(2^-8, BF16_GAP_SLACK x the stock bf16 gap) of the
               f32 stock step, with step times and peak memory; the measured
@@ -1340,13 +1350,97 @@ def serve_loop(model, params, meter=None):
     return loop
 
 
+#: the serve loop's graph replays against the eager step: steps held, and
+#: where not bit for bit, the share of the largest |value| that a logit or
+#: a cache entry may move (one bf16 rounding)
+GRAPH_STEPS = 4
+GRAPH_REL = 2.0 ** -8
+
+
+def _cache_copy(cache) -> list:
+    return [{k: v.clone() for k, v in c.items()} for c in cache]
+
+
+def graph_check(loop) -> dict:
+    """The loop's captured decode graph against the eager step.  The first
+    queued request's prompt is teacher-forced through the loop (slot 0,
+    the other slots on seeded tokens; the first step captures the graph);
+    from that state GRAPH_STEPS replays and as many eager steps
+    (``make_decode_step`` called directly, an int position) on a copy of
+    the cache, greedy tokens fed back: logits and every cache tensor bit
+    for bit, or else each one that differs named and held within
+    GRAPH_REL of its largest |value|.  The cache is then put back as it
+    was, so the run serves from the state it would have."""
+    from repro_torch.serve.engine import make_decode_step
+    t_start = time.perf_counter()
+    model, params, cache = loop.model, loop.params, loop.cache
+    saved = _cache_copy(cache)
+    prompt = np.asarray(loop.queue[0].prompt, np.int32)
+    toks = np.random.default_rng(2).integers(
+        2, model.cfg.vocab_size, (loop.slots, 1)).astype(np.int32)
+    for t, tok in enumerate(prompt[:-1]):
+        toks[0, 0] = tok
+        loop.decode(toks, t)
+    eager = _cache_copy(cache)
+    step = make_decode_step(model)
+    toks[0, 0] = prompt[-1]
+    pos = len(prompt) - 1
+    differ: dict = {}
+
+    def held(name, got, want):
+        if torch.equal(got, want):
+            return
+        scale = max(float(want.float().abs().max()), 1e-30)
+        rel = float((got.float() - want.float()).abs().max()) / scale
+        differ[name] = max(rel, differ.get(name, 0.0))
+    for i in range(GRAPH_STEPS):
+        got = loop.decode(toks, pos).clone()
+        with torch.no_grad():
+            want, _ = step(params, {"tokens": torch.from_numpy(toks.copy())
+                                    .cuda(), "pos": pos}, eager)
+        held("logits", got, want)
+        for layer, (c, e) in enumerate(zip(cache, eager)):
+            for k in c:
+                held(f"layer {layer} {k}", c[k], e[k])
+        toks = torch.argmax(got, dim=-1).to(torch.int32).cpu().numpy()[:, None]
+        pos += 1
+    for c, sv in zip(cache, saved):
+        for k in c:
+            c[k].copy_(sv[k])
+    torch.cuda.synchronize()
+    g = loop.graph
+    out = {"bit_equal": not differ, "differ": differ,
+           "capture_ms": g.capture_ms, "pool_bytes": g.pool_bytes,
+           "launches_a_replay": {k.name: n for k, n in g.launches.items()},
+           "seconds": time.perf_counter() - t_start}
+    log(f"[serve] {model.cfg.name} decode graph: captured in "
+        f"{g.capture_ms:.1f} ms, private pool {g.pool_bytes} B, launches "
+        f"a replay "
+        f"{json.dumps(out['launches_a_replay'])}; {len(prompt) - 1} prompt "
+        f"steps then {GRAPH_STEPS} replays vs the eager step on a copy of "
+        f"the cache: " + ("logits and every cache tensor bit for bit"
+                          if not differ else "differ in " + ", ".join(
+                              f"{n} ({r:.3e} of max)"
+                              for n, r in sorted(differ.items())))
+        + f"; {out['seconds']:.2f} s")
+    over = {n: r for n, r in differ.items() if r > GRAPH_REL}
+    if over:
+        raise RuntimeError(f"serve {model.cfg.name}: the graph's replays "
+                           f"differ from the eager step beyond {GRAPH_REL} "
+                           f"of max: {over}")
+    return out
+
+
 def phase_serve(model, params) -> float:
     from repro_torch.core.power import R740_ARRIA10
     from repro_torch.telemetry import DecodeEnergyMeter, node_envelope
     cfg = model.cfg
+    t_phase = time.perf_counter()
     meter = DecodeEnergyMeter(envelope=node_envelope(R740_ARRIA10,
                                                      accelerated=True))
     loop = serve_loop(model, params, meter)
+    graph = graph_check(loop)
+    graph_obj = loop.graph
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     done = loop.run()
@@ -1364,6 +1458,8 @@ def phase_serve(model, params) -> float:
     n_tok = sum(len(r.out) for r in done)
     # every slot fill teacher-forces prompt[:-1] through full-batch steps
     forced = sum(len(r.prompt) - 1 for r in done)
+    if loop.graph is not graph_obj:
+        raise RuntimeError(f"serve {cfg.name}: the run recaptured its graph")
     out = {"wall_s": wall, "tokens": n_tok, "tokens_per_s": n_tok / wall,
            "steps": loop.steps_done, "forced_steps": forced,
            "ledger_ws": meter.ledger.total_ws,
@@ -1373,13 +1469,16 @@ def phase_serve(model, params) -> float:
                          "decode_ws": r.decode_ws} for r in done]}
     log(f"[serve] {cfg.name}: 8 requests, {n_tok} tokens in {wall:.3f} s "
         f"({out['tokens_per_s']:.2f} tokens/s; {forced} prompt steps + "
-        f"{loop.steps_done} decode steps, all 8 slots wide); "
+        f"{loop.steps_done} decode steps, all 8 slots wide, each a replay "
+        f"of the graph captured before the run); "
         f"ledger {out['ledger_ws']:.3f} Ws at the accelerated R740 point; "
         f"peak device memory {out['peak_gb']:.2f} GB")
     for r in out["requests"]:
         log(f"[serve] request {r['rid']}: prompt {r['prompt']} tokens, "
             f"{r['tokens']} new, prefill {r['prefill_ws']:.4f} Ws, decode "
             f"{r['decode_ws']:.4f} Ws")
+    log(f"[time] serve {cfg.name}: {time.perf_counter() - t_phase:.1f} s "
+        f"(the graph check {graph['seconds']:.1f} s, the run {wall:.1f} s)")
     return wall
 
 
@@ -1393,15 +1492,22 @@ def profile_serve(model, params, wall_s: float) -> None:
     as well stretched the window 2.7x and multiplied the events that
     ``key_averages`` reduces on the host."""
     from torch.profiler import ProfilerActivity, profile
+    t_phase = time.perf_counter()
     loop = serve_loop(model, params)
+    graph = loop.capture()              # outside the profiled window
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         loop.run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
-    report_profile(f"{model.cfg.name} serve window", prof, wall_ms,
+    if loop.graph is not graph:
+        raise RuntimeError("serve profile: the run recaptured its graph")
+    report_profile(f"{model.cfg.name} serve window, every step a replay of "
+                   f"the captured decode graph", prof, wall_ms,
                    f"unprofiled {wall_s * 1e3:.3f} ms")
+    log(f"[time] serve profile {model.cfg.name}: "
+        f"{time.perf_counter() - t_phase:.1f} s")
 
 
 def report_profile(what: str, prof, wall_ms: float, note: str) -> None:
@@ -2692,29 +2798,29 @@ def run_arch(arch: str, counters: dict, smi: str) -> dict:
 #: the three models' train paths at published width: the layers on the
 #: card and why the depth is cut (AdamW with f32 parameters holds 16 B a
 #: parameter: parameters, gradients and two moments).  recurrentgemma-9b
-#: would fit 6 layers (two units; 73.1 GB at peak), but its plain RG-LRU
-#: backward, 4096 in-place steps, takes about 1.1 s a call and 16 calls a
-#: step there (21 s a step): one unit keeps the phase inside the run's time
+#: would fit 6 layers (two units; 73.1 GB at peak); it keeps the one unit
+#: its earlier runs took (when its plain RG-LRU backward, a loop over
+#: time, took 1.1 s a call), so that its steps compare with theirs
 TRAIN_LAYERS = {
     "qwen2-7b": (8, "28 layers hold 122 GB of f32 params, grads and AdamW "
                     "moments"),
     "mamba2-1.3b": (48, ""),
     "recurrentgemma-9b": (3, "38 layers hold 148 GB of f32 params, grads "
                              "and AdamW moments; one unit (rec, rec, attn), "
-                             "not the 6 layers that fit, for the run's time: "
-                             "the plain RG-LRU backward takes ~1.1 s a call"),
+                             "as in every run since the train phase began, "
+                             "not the 6 layers that fit"),
 }
 #: the reference's train_4k (4096 x 256) with the batch cut to 4: under
 #: the configs' own remat="full", microbatches=4, one sequence a microbatch
 TRAIN_SHAPE = "train_4k_b4"
 #: AdamW steps under the offload plan (the first held against the stock
 #: f32 step), of TRAIN_STEPS_OF; cut where a step takes ~11 s (the plain
-#: SSD and RG-LRU backwards), for the run's time
+#: SSD backward's chunk loop), for the run's time
 TRAIN_STEPS_OF = 4
 TRAIN_STEPS = {
     "qwen2-7b": (4, ""),
     "mamba2-1.3b": (2, "~11 s a step, for the run's time"),
-    "recurrentgemma-9b": (2, "~11 s a step, for the run's time"),
+    "recurrentgemma-9b": (4, ""),
 }
 #: the kernels each train path must launch
 TRAIN_KERNELS = {"qwen2-7b": ("flash_attention", "swiglu"),
@@ -2905,8 +3011,32 @@ def phase_functions() -> dict:
         "rglru", ops.rglru, ref.rglru_ref, None, [log_a, bb],
         lambda got: check("rglru", got, ref.rglru_ref(log_a, bb), 2e-5,
                           2e-5),
-        (3.0 * s * w, PEAK_F32, 12.0 * s * w), 1, f"B=1 S={s} W={w} f32")
+        (3.0 * s * w, PEAK_F32, 12.0 * s * w), 5, f"B=1 S={s} W={w} f32")
+    mem = autograd_bytes(ref.rglru_ref, [log_a, bb])
+    rows["rglru"].update(mem)
+    log(f"[train] rglru plain version (the associative scan) at B=1 S={s} "
+        f"W={w}: keeps {mem['kept_bytes'] / 1e6:.1f} MB for its backward "
+        f"(its output included), peak {mem['peak_bytes'] / 1e6:.1f} MB over "
+        f"forward and backward; one (B,S,W) f32 tensor is "
+        f"{4 * s * w / 1e6:.1f} MB")
     return rows
+
+
+def autograd_bytes(fn, args) -> dict:
+    """Device bytes that one call of ``fn`` under autograd keeps until its
+    backward (its output included), and the most allocated over its
+    forward and backward, both above what was allocated before."""
+    args = [a.detach().requires_grad_() for a in args]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out = fn(*args)
+    kept = torch.cuda.memory_allocated() - base
+    grads = torch.autograd.grad(out, args, torch.ones_like(out))
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    del out, grads
+    return {"kept_bytes": kept, "peak_bytes": peak}
 
 
 def train_batches(cfg, shape, n: int) -> list:
@@ -3453,6 +3583,7 @@ def main() -> int:
         log(f"train {arch} " + json.dumps(out))
         del out
         torch.cuda.empty_cache()
+        mark(f"train {arch}")
     cli = phase_train_cli()
     for name, n in cli["launches"].items():
         launches[name] += n

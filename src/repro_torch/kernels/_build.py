@@ -33,6 +33,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 c_ptr = ctypes.c_void_p
 c_int = ctypes.c_int
 
+#: every ``CudaKernel`` made, in order: a captured CUDA graph reads their
+#: counts around its capture to count its replays' launches
+KERNELS: list["CudaKernel"] = []
+
 
 def nvcc() -> str:
     for cand in (os.environ.get("CUDA_HOME", ""), "/usr/local/cuda"):
@@ -104,7 +108,9 @@ class CudaKernel:
 
     ``launch`` adds one to ``launches`` each time it calls the launcher —
     and nowhere else — so a run can show that its path went through the
-    kernel.  A non-zero CUDA error from the launcher raises."""
+    kernel; a captured CUDA graph that holds launches adds them on each
+    replay (``serve.engine.DecodeGraph``).  A non-zero CUDA error from the
+    launcher raises."""
 
     def __init__(self, name: str, argtypes: list):
         self.name = name
@@ -113,6 +119,7 @@ class CudaKernel:
         self._lib: Optional[ctypes.CDLL] = None
         self._fn: Optional[ctypes._CFuncPtr] = None
         self._errstr: Optional[ctypes._CFuncPtr] = None
+        KERNELS.append(self)
 
     def load(self) -> None:
         if self._fn is not None:

@@ -9,10 +9,10 @@ Counterpart of ``repro.models.rglru``.  Block: x -> {linear -> causal conv
     h_t = exp(log_a_t) * h_{t-1} + sqrt(1 - exp(2 log_a_t)) * (i_t * x_t)
 
 Prefill and the forward pass run the linear recurrence over the whole
-sequence: ``rglru_scan`` in stock ops (a loop over time where the reference
-takes an associative scan: the same recurrence), or the RG-LRU kernel under
-the 'pallas' destination of ``plan.rglru_impl``.  Decode is the one-step
-recurrence on a (B, W) f32 state, in stock ops, as in the reference.
+sequence: ``rglru_scan`` in stock ops (the reference's associative scan),
+or the RG-LRU kernel under the 'pallas' destination of
+``plan.rglru_impl``.  Decode is the one-step recurrence on a (B, W) f32
+state, in stock ops, as in the reference.
 
 The cache (``init_rglru_cache``) is updated in place: decode and prefill
 write the new conv window and state into the dict's tensors.
@@ -73,17 +73,46 @@ def rglru_gates(params, x, x_cols=None):
     return log_a, b
 
 
+def _combine(a1, b1, a2, b2):
+    """The reference's ``combine`` of two steps of the recurrence."""
+    return a2 * a1, a2 * b1 + b2
+
+
+def _interleave(even, odd):
+    """even[0], odd[0], even[1], ... along axis 1; ``even`` has as many
+    elements as ``odd`` or one more."""
+    m = odd.shape[1]
+    out = torch.stack((even[:, :m], odd), dim=2).reshape(
+        even.shape[0], 2 * m, *even.shape[2:])
+    return out if even.shape[1] == m else torch.cat((out, even[:, m:]), 1)
+
+
+def _associative_scan(a, b):
+    """``lax.associative_scan(combine, (a, b), axis=1)``, its odd/even
+    recursion op for op: combine adjacent pairs, scan the half-length
+    result (the odd elements), combine each with the next even input (the
+    even elements), then put element 0 in front and interleave."""
+    n = a.shape[1]
+    if n < 2:
+        return a, b
+    odd_a, odd_b = _associative_scan(
+        *_combine(a[:, 0:-1:2], b[:, 0:-1:2], a[:, 1::2], b[:, 1::2]))
+    if n % 2 == 0:
+        ev_a, ev_b = _combine(odd_a[:, :-1], odd_b[:, :-1], a[:, 2::2],
+                              b[:, 2::2])
+    else:
+        ev_a, ev_b = _combine(odd_a, odd_b, a[:, 2::2], b[:, 2::2])
+    ev_a = torch.cat((a[:, :1], ev_a), dim=1)
+    ev_b = torch.cat((b[:, :1], ev_b), dim=1)
+    return _interleave(ev_a, odd_a), _interleave(ev_b, odd_b)
+
+
 def rglru_scan(log_a, b):
     """The linear recurrence h_t = exp(log_a_t) h_{t-1} + b_t over axis 1,
-    from h = 0, in f32. (B,S,W) -> h (B,S,W)."""
-    a = torch.exp(log_a.float())
-    b = b.float()
-    h = torch.empty_like(b)
-    prev = torch.zeros_like(b[:, 0])
-    for t in range(b.shape[1]):
-        prev = torch.addcmul(b[:, t], a[:, t], prev)
-        h[:, t] = prev
-    return h
+    from h = 0, in f32. (B,S,W) -> h (B,S,W).  The reference's associative
+    scan (``_associative_scan``): log2(S) levels of whole-tensor ops, so
+    its autograd graph and backward stay short at any S."""
+    return _associative_scan(torch.exp(log_a.float()), b.float())[1]
 
 
 def run_rglru_block(params, x, cfg: ArchConfig, plan: PlanConfig, cache=None,

@@ -3,7 +3,12 @@
 Counterpart of ``repro.serve.engine``.  ``ServeLoop`` is a simple
 continuous-batching scheduler: fixed decode batch, slots freed on
 EOS/length and refilled from the queue, greedy sampling.  The reference
-``jax.jit``s its decode step; the port runs it eagerly.
+``jax.jit``s its decode step; on ``cuda`` the port captures it once as a
+CUDA graph (``DecodeGraph``) and replays it for every step, the
+teacher-forced prompt steps included.  The step reads the tokens and the
+position from the loop's static device buffers and writes the loop's
+cache in place; on the CPU the loop runs the same step eagerly through the
+same buffers.
 
 Pass a ``repro_torch.telemetry.DecodeEnergyMeter`` to attribute
 per-request Watt*seconds: every prefill/decode window's wall time and
@@ -36,6 +41,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.kernels._build import KERNELS
 from repro_torch.models.model import Model
 from repro_torch.telemetry.dvfs import LiveUtilization
 from repro_torch.telemetry.energy import (IDLE_PHASE, INFRA_TENANT,
@@ -55,6 +61,63 @@ def make_decode_step(model: Model, rules=None):
     def decode_step(params, batch, cache):
         return model.decode_step(params, batch, cache, rules)
     return decode_step
+
+
+class DecodeGraph:
+    """``make_decode_step(model)`` captured once as a CUDA graph: the
+    port's counterpart of the reference's ``jax.jit`` of its decode step.
+
+    The step reads ``tokens`` (slots, 1) and the 0-d ``pos`` and writes
+    ``cache`` in place; ``replay()`` runs it on whatever those buffers
+    then hold and returns the logits in the graph's own output tensor
+    (overwritten by the next replay).  Before the capture one eager step
+    runs on a side stream, on a copy of the cache so that served state
+    does not move, to build and load every kernel library and set its
+    attributes outside the capture.  A capture or a replay that fails
+    raises.
+
+    A replay makes no call to a kernel's Python launcher, so the graph
+    counts the launches its capture recorded (``launches``, per
+    ``CudaKernel``) and adds them to each kernel's count on every replay;
+    the capture's own recorded launches ran nothing and are not counted.
+    ``capture_ms`` is the capture's wall time (the warm-up apart);
+    ``pool_bytes`` the device memory the graph's private pool took."""
+
+    def __init__(self, model: Model, params, cache: list,
+                 tokens: torch.Tensor, pos: torch.Tensor):
+        dev = tokens.device
+        step = make_decode_step(model)
+        batch = {"tokens": tokens, "pos": pos}
+        warm = [{k: v.clone() for k, v in c.items()} for c in cache]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side), torch.no_grad():
+            step(params, batch, warm)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        del warm
+        counts = [k.launches for k in KERNELS]
+        # the capture empties the allocator's cache as it begins: empty it
+        # first, so that what is reserved after it is the pool's growth
+        torch.cuda.empty_cache()
+        reserved = torch.cuda.memory_reserved(dev)
+        t0 = time.perf_counter()
+        self.graph = torch.cuda.CUDAGraph()
+        with torch.no_grad(), torch.cuda.graph(self.graph):
+            self.logits, _ = step(params, batch, cache)
+        torch.cuda.synchronize(dev)
+        self.capture_ms = (time.perf_counter() - t0) * 1e3
+        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
+        self.launches = {k: k.launches - n for k, n in zip(KERNELS, counts)
+                         if k.launches != n}
+        for k, n in zip(KERNELS, counts):
+            k.launches = n
+
+    def replay(self) -> torch.Tensor:
+        self.graph.replay()
+        for k, n in self.launches.items():
+            k.launches += n
+        return self.logits
 
 
 @dataclass
@@ -120,8 +183,15 @@ class ServeLoop:
             meter.utilization = self.utilization
         self.cache = model.init_cache(batch_slots, max_seq)
         self.pos = np.zeros(batch_slots, np.int32)
-        self._decode = make_decode_step(model)
         self._tokens = np.zeros((batch_slots, 1), np.int32)
+        # the decode step's static inputs on the device, and on cuda its
+        # captured graph with the (model, params) it was captured for
+        self._tok_buf = torch.zeros((batch_slots, 1), dtype=torch.int32,
+                                    device=self.device)
+        self._pos_buf = torch.zeros((), dtype=torch.int32,
+                                    device=self.device)
+        self.graph: Optional[DecodeGraph] = None
+        self._graph_for: Optional[tuple] = None
         # observability: open request spans by rid + the coalesced idle span
         self._req_spans: dict = {}
         self._idle_span = None
@@ -258,15 +328,42 @@ class ServeLoop:
                 self.pos[i] = len(seq) - 1
                 self._tokens[i, 0] = int(seq[-1])
 
-    def _batch(self, toks: np.ndarray, pos: int) -> dict:
-        return {"tokens": torch.as_tensor(toks, device=self.device),
-                "pos": pos}
+    def capture(self) -> Optional[DecodeGraph]:
+        """On ``cuda``, the decode step's graph for the loop's current
+        ``model`` and ``params``: captured at the first call, and again
+        after a caller has swapped either one.  None on the CPU, where the
+        step runs eagerly."""
+        if self.device.type != "cuda":
+            return None
+        key = self._graph_for
+        if key is None or key[0] is not self.model \
+                or key[1] is not self.params:
+            self.graph = self._graph_for = None   # free the old pool first
+            self.graph = DecodeGraph(self.model, self.params, self.cache,
+                                     self._tok_buf, self._pos_buf)
+            self._graph_for = (self.model, self.params)
+        return self.graph
+
+    def decode(self, toks: np.ndarray, pos: int) -> torch.Tensor:
+        """One decode step of the whole slot batch on ``toks`` (slots, 1)
+        at position ``pos``, writing the loop's cache in place; returns the
+        logits (slots, V).  The inputs go through the static buffers; on
+        ``cuda`` the step is a replay of ``capture()``'s graph, whose
+        logits tensor the next step overwrites."""
+        self._tok_buf.copy_(torch.from_numpy(np.ascontiguousarray(toks)))
+        self._pos_buf.fill_(pos)
+        graph = self.capture()
+        if graph is not None:
+            return graph.replay()
+        with torch.no_grad():
+            return make_decode_step(self.model)(
+                self.params, {"tokens": self._tok_buf, "pos": self._pos_buf},
+                self.cache)[0]
 
     def _step_one(self, slot: int, token: int, pos: int):
         toks = self._tokens.copy()
         toks[slot, 0] = token
-        _, self.cache = self._decode(self.params, self._batch(toks, pos),
-                                     self.cache)
+        self.decode(toks, pos)
 
     def _idle_step(self) -> int:
         """A step with no work still burns the envelope floor: book the
@@ -312,8 +409,7 @@ class ServeLoop:
         # one position for the whole batch: the max over the active slots
         pos = int(max(self.pos[i] for i, r in enumerate(self.active)
                       if r is not None))
-        logits, self.cache = self._decode(
-            self.params, self._batch(self._tokens, pos), self.cache)
+        logits = self.decode(self._tokens, pos)
         nxt = torch.argmax(logits, dim=-1).cpu().numpy()
         if self.meter is not None:
             # the step's Ws splits evenly across the requests in the batch

@@ -745,6 +745,23 @@ def test_functions_launch_forward_and_differentiate_the_plain_version(
             assert a.dtype == b.dtype and torch.equal(a, b), (name, i)
 
 
+@pytest.mark.parametrize("s", [257, 4096])
+def test_rglru_function_backward_is_the_plain_scan_on_the_card(cuda, s):
+    """The rglru Function's backward (the plain version's associative scan
+    rematerialized and differentiated, the cotangent in f32) equals
+    autograd of the plain version on the card, at the train microbatch's
+    S and a ragged one."""
+    rng = np.random.default_rng(s)
+    args = [-torch.abs(_randn(rng, (1, s, 40), scale=0.3)).requires_grad_(),
+            _randn(rng, (1, s, 40)).requires_grad_()]
+    out = ops.rglru(*args)
+    cot = torch.randn_like(out)
+    got = torch.autograd.grad(out, args, cot)
+    want = torch.autograd.grad(ref.rglru_ref(*args), args, cot)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.parametrize("arch", ["qwen2-7b", "mamba2-1.3b",
                                   "recurrentgemma-9b"])
 def test_reduced_train_step_on_the_card(cuda, arch):
@@ -1130,3 +1147,107 @@ def test_rules_train_step_on_the_host_mesh(cuda):
         for (n, a), (_, b) in zip(p0.named_parameters(),
                                   p1.named_parameters()):
             assert torch.equal(a, b.full_tensor()), n
+
+
+# ---------------------------------------------------------------------------
+# The serve loop's decode step as a captured CUDA graph
+# ---------------------------------------------------------------------------
+
+#: one tiny config per kind of cache, bf16, under the offload plan:
+#: (arch, plan fields)
+CACHE_KINDS = {
+    "bf16_attention": ("tiny-test", {}),
+    "int8_attention": ("tiny-test", {"kv_cache_dtype": "int8"}),
+    "ssm": ("mamba2-1.3b", {}),
+    "rglru": ("recurrentgemma-9b", {}),
+    "moe": ("granite-moe-1b-a400m", {}),
+}
+OFFLOAD = dict(attn_impl="pallas", mlp_impl="pallas", ssm_impl="pallas",
+               rglru_impl="pallas")
+
+
+def _serving(kind, seed=0):
+    arch, fields = CACHE_KINDS[kind]
+    cfg = get_config(arch, reduced=arch != "tiny-test")
+    cfg = dataclasses.replace(cfg, plan=cfg.plan.replace(**OFFLOAD,
+                                                         **fields))
+    model = Model(cfg, device="cuda")
+    return model, model.init(torch.Generator(device="cuda")
+                             .manual_seed(seed))
+
+
+def _direct_step(model, params, toks, pos, cache):
+    """The decode step called eagerly, an int position, a fresh token
+    tensor."""
+    from repro_torch.serve.engine import make_decode_step
+    return make_decode_step(model)(
+        params, {"tokens": torch.from_numpy(toks.copy()).cuda(),
+                 "pos": int(pos)}, cache)[0]
+
+
+def _clone(cache):
+    return [{k: v.clone() for k, v in c.items()} for c in cache]
+
+
+@pytest.mark.parametrize("kind", CACHE_KINDS)
+def test_decode_graph_replays_the_eager_step_bit_for_bit(cuda, kind):
+    """Every step of ``ServeLoop.decode`` on the card is a replay of one
+    captured graph: logits and every cache tensor equal the eager step's
+    on a copy of the cache, bit for bit."""
+    from repro_torch.serve.engine import ServeLoop
+    model, params = _serving(kind)
+    loop = ServeLoop(model, params, batch_slots=2, max_seq=16)
+    eager = _clone(loop.cache)
+    rng = np.random.default_rng(1)
+    graph = None
+    for pos in range(8):
+        toks = rng.integers(2, model.cfg.vocab_size, (2, 1)).astype(np.int32)
+        got = loop.decode(toks, pos).clone()
+        graph = graph or loop.graph
+        assert loop.graph is graph and graph.pool_bytes > 0
+        want = _direct_step(model, params, toks, pos, eager)
+        assert torch.equal(got, want), pos
+        for c, e in zip(loop.cache, eager):
+            for k in c:
+                assert torch.equal(c[k], e[k]), (pos, k)
+
+
+def test_decode_graph_counts_its_replayed_launches(cuda):
+    """A replay calls no launcher, so the graph adds the launches its
+    capture recorded (one swiglu a layer) on every replay; the capture
+    itself counts none."""
+    from repro_torch.serve.engine import ServeLoop
+    model, params = _serving("bf16_attention")
+    loop = ServeLoop(model, params, batch_slots=2, max_seq=16)
+    toks = np.full((2, 1), 5, np.int32)
+    n0 = SG.KERNEL.launches
+    loop.decode(toks, 0)
+    per_step = model.cfg.n_layers
+    # the warm-up step ran eagerly and counted itself
+    assert loop.graph.launches == {SG.KERNEL: per_step}
+    assert SG.KERNEL.launches == n0 + 2 * per_step
+    for pos in range(1, 4):
+        loop.decode(toks, pos)
+    assert SG.KERNEL.launches == n0 + 5 * per_step
+
+
+def test_decode_graph_recaptures_when_params_are_swapped(cuda):
+    from repro_torch.serve.engine import ServeLoop
+    model, params = _serving("bf16_attention")
+    _, other = _serving("bf16_attention", seed=1)
+    loop = ServeLoop(model, params, batch_slots=2, max_seq=16)
+    toks = np.full((2, 1), 7, np.int32)
+    loop.decode(toks, 0)
+    first = loop.graph
+    eager = _clone(loop.cache)
+    loop.params = other
+    got = loop.decode(toks, 1).clone()
+    assert loop.graph is not first
+    assert torch.equal(got, _direct_step(model, other, toks, 1, eager))
+    model2 = Model(model.cfg, model.plan, model.device)
+    loop.model = model2
+    loop.decode(toks, 2)
+    second = loop.graph
+    assert second is not first
+    loop.decode(toks, 3)
+    assert loop.graph is second

@@ -15,9 +15,11 @@ import pytest
 import torch
 
 from repro.configs import get_config as jget
+from repro.kernels import ref as JREF
 from repro.models import rglru as JR
 from repro.models import transformer as JT
 from repro_torch.configs import get_config
+from repro_torch.kernels import ops
 from repro_torch.models import rglru as R
 from repro_torch.models import transformer as T
 
@@ -61,14 +63,68 @@ def test_rglru_gates():
         _close(g, w)
 
 
-@pytest.mark.parametrize("s", [1, 17, 64])
-def test_rglru_scan(s):
+#: sequence lengths of the scan's twins: 1 and 2 (the recursion's base),
+#: odd and even lengths at every level down, powers of two and their
+#: neighbours; 4096 (the train microbatch) at a narrow width
+SCAN_S = [1, 2, 3, 17, 64, 127, 128, 257, 4096]
+
+
+def _scan_inputs(s, w):
     rng = np.random.default_rng(s)
-    log_a = -np.abs(_np(rng, (2, s, 24))) * 0.3
-    b = _np(rng, (2, s, 24))
+    return -np.abs(_np(rng, (2, s, w))) * 0.3, _np(rng, (2, s, w))
+
+
+@pytest.mark.parametrize("s", SCAN_S)
+def test_rglru_scan(s):
+    log_a, b = _scan_inputs(s, 24 if s < 4096 else 8)
     _close(R.rglru_scan(torch.from_numpy(log_a), torch.from_numpy(b)),
            JR.rglru_scan(jnp.asarray(log_a), jnp.asarray(b)),
            atol=2e-5, rtol=2e-5)
+
+
+#: the plain path's gradients against ``jax.vjp`` of the reference's
+#: oracle: the same recursion, its ``exp`` and products rounded by XLA and
+#: torch (at most 3.8e-6 apart at S = 4096): the scan's own tolerance
+GRAD_TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("s", [3, 64, 257, 4096])
+def test_rglru_gradients_match_the_reference_vjp(s):
+    """``ops.rglru`` on the CPU (the plain version forward, its autograd
+    backward with the cotangent in f32) against ``jax.vjp`` of the
+    reference's ``kernels.ref.rglru_ref`` on the same inputs and
+    cotangent."""
+    log_a, b = _scan_inputs(s, 8)
+    cot = _np(np.random.default_rng(s + 1), log_a.shape)
+    jout, vjp = jax.vjp(JREF.rglru_ref, jnp.asarray(log_a), jnp.asarray(b))
+    jga, jgb = vjp(jnp.asarray(cot))
+    ta, tb = (torch.from_numpy(a).requires_grad_() for a in (log_a, b))
+    out = ops.rglru(ta, tb)
+    _close(out.detach(), jout, atol=2e-5, rtol=2e-5)
+    ga, gb = torch.autograd.grad(out, (ta, tb), torch.from_numpy(cot))
+    _close(ga, jga, **GRAD_TOL)
+    _close(gb, jgb, **GRAD_TOL)
+
+
+def _graph_nodes(t):
+    """The autograd nodes ``t`` hangs from."""
+    seen, todo = set(), [t.grad_fn]
+    while todo:
+        fn = todo.pop()
+        if fn is None or fn in seen:
+            continue
+        seen.add(fn)
+        todo.extend(nxt for nxt, _ in fn.next_functions)
+    return len(seen)
+
+
+def test_rglru_scan_graph_is_log_depth():
+    """At S = 4096 the scan's autograd graph holds log2(S) levels of a few
+    whole-tensor ops (205 nodes), not one step a position (a loop over
+    time: 16,387)."""
+    log_a, b = (torch.from_numpy(a).requires_grad_()
+                for a in _scan_inputs(4096, 4))
+    assert _graph_nodes(R.rglru_scan(log_a, b)) <= 400
 
 
 def test_block_spec_matches_the_reference_init():

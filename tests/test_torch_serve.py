@@ -1,4 +1,6 @@
-"""The port's ``ServeLoop`` against the JAX ``ServeLoop`` on the same requests.
+"""The port's ``ServeLoop`` against the JAX ``ServeLoop`` on the same requests,
+and its decode step through the static buffers against the step called
+directly.
 
 Both loops serve f32 tiny-test (and reduced mamba2-1.3b and
 recurrentgemma-9b, whose recurrent states the teacher-forced prompt steps
@@ -29,7 +31,7 @@ from repro_torch.configs import get_config
 from repro_torch.convert import params_from_jax
 from repro_torch.core.power import R740_ARRIA10
 from repro_torch.models.model import Model
-from repro_torch.serve.engine import Request, ServeLoop
+from repro_torch.serve.engine import Request, ServeLoop, make_decode_step
 from repro_torch.telemetry import DecodeEnergyMeter, node_envelope
 
 WS = dict(rel=1e-9, abs=1e-12)
@@ -209,3 +211,107 @@ def test_loop_device_must_be_the_models(pair, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     with pytest.raises(ValueError, match="model's"):
         ServeLoop(model, params, batch_slots=1, max_seq=8, device="cuda")
+
+
+# ---------------------------------------------------------------------------
+# the decode step through the loop's static buffers (what a CUDA graph
+# captures on the card) against the step called directly
+# ---------------------------------------------------------------------------
+
+#: one tiny config per kind of cache, under the offload plan the card
+#: serves (its kernels' plain versions here): (arch, reduced, plan fields)
+CACHE_KINDS = {
+    "bf16_attention": ("tiny-test", False, {}),
+    "int8_attention": ("tiny-test", False, {"kv_cache_dtype": "int8"}),
+    "ssm": ("mamba2-1.3b", True, {}),
+    "rglru": ("recurrentgemma-9b", True, {}),
+    "moe": ("granite-moe-1b-a400m", True, {}),
+}
+OFFLOAD = dict(attn_impl="pallas", mlp_impl="pallas", ssm_impl="pallas",
+               rglru_impl="pallas")
+
+
+def _kind_model(kind):
+    arch, reduced, fields = CACHE_KINDS[kind]
+    cfg = get_config(arch, reduced)
+    cfg = dataclasses.replace(cfg, plan=cfg.plan.replace(**OFFLOAD,
+                                                         **fields))
+    model = Model(cfg, device="cpu")
+    return model, model.init(torch.Generator().manual_seed(0))
+
+
+def _clone(cache):
+    return [{k: v.clone() for k, v in c.items()} for c in cache]
+
+
+def _direct_step(model, params, toks, pos, cache):
+    """The step as the loop called it before its static buffers: a fresh
+    token tensor and an int position."""
+    return make_decode_step(model)(
+        params, {"tokens": torch.from_numpy(toks.copy()), "pos": int(pos)},
+        cache)[0]
+
+
+@pytest.mark.parametrize("kind", CACHE_KINDS)
+def test_static_buffer_step_equals_the_direct_step(kind):
+    """``ServeLoop.decode`` feeds the step a 0-d ``pos`` tensor and the
+    static token buffer: the same logits and cache, bit for bit, as the
+    step called directly with an int position on a copy of the cache."""
+    model, params = _kind_model(kind)
+    loop = ServeLoop(model, params, batch_slots=2, max_seq=16, device="cpu")
+    assert loop._pos_buf.dim() == 0
+    ref = _clone(loop.cache)
+    rng = np.random.default_rng(1)
+    for pos in range(6):
+        toks = rng.integers(2, model.cfg.vocab_size, (2, 1)).astype(np.int32)
+        got = loop.decode(toks, pos)
+        assert torch.equal(got, _direct_step(model, params, toks, pos, ref))
+        for c, r in zip(loop.cache, ref):
+            assert c.keys() == r.keys()
+            for k in c:
+                assert torch.equal(c[k], r[k]), (pos, k)
+
+
+@pytest.mark.parametrize("kind", CACHE_KINDS)
+def test_decode_step_writes_the_cache_in_place(kind):
+    """Every cache tensor keeps its storage across steps, as a captured
+    graph, which reads and writes fixed addresses, requires."""
+    model, params = _kind_model(kind)
+    loop = ServeLoop(model, params, batch_slots=2, max_seq=16, device="cpu")
+    cache = loop.cache
+    ptrs = [{k: v.data_ptr() for k, v in c.items()} for c in cache]
+    bufs = (loop._tok_buf.data_ptr(), loop._pos_buf.data_ptr())
+    before = _clone(cache)
+    for pos in range(3):
+        loop.decode(np.full((2, 1), 3 + pos, np.int32), pos)
+    assert loop.cache is cache
+    assert [{k: v.data_ptr() for k, v in c.items()} for c in cache] == ptrs
+    assert (loop._tok_buf.data_ptr(), loop._pos_buf.data_ptr()) == bufs
+    assert any(not torch.equal(c[k], b[k])
+               for c, b in zip(cache, before) for k in c)
+
+
+class _DirectLoop(ServeLoop):
+    """The loop with its decode step called directly, as before the step
+    took static buffers."""
+
+    def decode(self, toks, pos):
+        return _direct_step(self.model, self.params, toks, pos, self.cache)
+
+
+@pytest.mark.parametrize("kind", CACHE_KINDS)
+def test_loop_serves_what_the_direct_step_served(kind):
+    """A whole run, slots refilled while others hold state: the same
+    tokens, finishing order and steps as the loop whose step is called
+    directly."""
+    model, params = _kind_model(kind)
+    loops = [cls(model, params, batch_slots=2, max_seq=32, device="cpu")
+             for cls in (ServeLoop, _DirectLoop)]
+    for loop in loops:
+        for r in _requests(model.cfg.vocab_size, 4, seed=4)[1]:
+            loop.submit(r)
+    done = [loop.run() for loop in loops]
+    assert [(r.rid, r.out) for r in done[0]] == \
+        [(r.rid, r.out) for r in done[1]]
+    assert all(len(r.out) >= 1 for r in done[0]) and len(done[0]) == 4
+    assert loops[0].steps_done == loops[1].steps_done
