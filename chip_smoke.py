@@ -204,19 +204,31 @@ a non-zero exit and no result line:
               cut, logged "layers L of N"), one model's weights at a time:
               the stock plan's first step (loss and gradient norm) in f32
               and bf16, then AdamW steps under the offload plan on
-              SyntheticLM batches at train_4k_b4 (TRAIN_STEPS: 4, cut to
-              2 for mamba2-1.3b, whose step takes ~11 s, logged "steps S
-              of 4"; the
-              configs' remat="full", microbatches=4), finite, the first
-              within max(2^-8, BF16_GAP_SLACK x the stock bf16 gap) of the
-              f32 stock step, with step times and peak memory; the measured
-              rung's train trial at train_4k_b4 (s, W, Ws a step, its NVML
-              window checked) beside the analytic estimate; each path's
-              kernels must launch; last, ``launch.train.run`` on tiny-lm
-              in a child process with deterministic algorithms (8 steps,
-              cut from 12 for the run's time, a checkpoint every 4, a
-              failure at step 6, a resume): the resumed losses equal the
-              uninterrupted run's bit for bit and the loss falls;
+              SyntheticLM batches at train_4k_b4 (TRAIN_STEPS, logged
+              "steps S of 4"; the configs' remat="full", microbatches=4)
+              through ``train.step.TrainGraph``, the port's jitted step:
+              the first step eager and the step's capture as a CUDA graph,
+              timed apart with the capture's ms and pool bytes, the later
+              steps replays; finite, the first within max(2^-8,
+              BF16_GAP_SLACK x the stock bf16 gap) of the f32 stock step,
+              with step times and peak memory; the measured rung's train
+              trial at train_4k_b4 (its warm-up the capture, each call a
+              replay; s, W, Ws a step, its NVML window checked) beside the
+              analytic estimate; each path's kernels must launch, counted
+              across replays; then, in a child process with deterministic
+              algorithms, the graph against the eager step at published
+              width (TRAIN_GRAPH_LAYERS, train_4k_b4): from the same seeded
+              weights, three ``make_train_step`` steps and three
+              ``TrainGraph`` steps (the first eager, then two replays),
+              the loss, the gradient norm, every parameter and every
+              optimizer-state tensor bit for bit (each that differs
+              named), and a replay's launches equal to one eager step's,
+              kernel by kernel; then in the same child
+              ``launch.train.run`` (the captured step) on tiny-lm (8
+              steps, cut from 12 for the run's time, a
+              checkpoint every 4, a failure at step 6, a resume): the
+              resumed losses equal the uninterrupted run's bit for bit
+              and the loss falls;
  10. pod      the pod-scale half, counted as a path of its own (the
               rules step's launches: flash_attention and swiglu must each
               launch once a layer, microbatch and remat pass), in at most
@@ -2814,12 +2826,12 @@ TRAIN_LAYERS = {
 #: the configs' own remat="full", microbatches=4, one sequence a microbatch
 TRAIN_SHAPE = "train_4k_b4"
 #: AdamW steps under the offload plan (the first held against the stock
-#: f32 step), of TRAIN_STEPS_OF; cut where a step takes ~11 s (the plain
-#: SSD backward's chunk loop), for the run's time
+#: f32 step), of TRAIN_STEPS_OF; cut (with the reason) where a step would
+#: take the run past its hold
 TRAIN_STEPS_OF = 4
 TRAIN_STEPS = {
     "qwen2-7b": (4, ""),
-    "mamba2-1.3b": (2, "~11 s a step, for the run's time"),
+    "mamba2-1.3b": (4, ""),
     "recurrentgemma-9b": (4, ""),
 }
 #: the kernels each train path must launch
@@ -2838,6 +2850,13 @@ GRAD_REL = 1e-6
 #: 1.4 GB), a checkpoint every 4, a failure at 6
 CLI_STEPS, CLI_EVERY, CLI_FAIL = 8, 4, 6
 CLI_STEPS_OF = 12
+#: the captured train step against the eager one, at published width and
+#: train_4k_b4: the layers of each model (the fewest that hold a layer
+#: loop and the residual across layers; recurrentgemma-9b's one unit, rec,
+#: rec, attn) and the steps of each side
+TRAIN_GRAPH_LAYERS = {"qwen2-7b": 2, "mamba2-1.3b": 2,
+                      "recurrentgemma-9b": 3}
+TRAIN_GRAPH_STEPS = 3
 
 
 def timed_backward(fn, args, cots, reps: int) -> float:
@@ -3077,7 +3096,7 @@ def run_train_path(arch: str, counters: dict, source, smi: str) -> dict:
                                            MeasuredBackend)
     from repro_torch.models.model import Model
     from repro_torch.telemetry.nvml import check_window
-    from repro_torch.train.step import make_opt_init, make_train_step
+    from repro_torch.train.step import TrainGraph, make_opt_init
     t_start = time.perf_counter()
     pub = get_config(arch)
     layers, why = TRAIN_LAYERS[arch]
@@ -3112,7 +3131,7 @@ def run_train_path(arch: str, counters: dict, source, smi: str) -> dict:
     model = Model(cfg, cfg.plan.replace(**OFFLOAD))
     torch.cuda.reset_peak_memory_stats()
     opt = make_opt_init(model)(params)
-    step = make_train_step(model)
+    step = TrainGraph(model)
     losses, norms, seconds = [], [], []
     for b in batches:
         torch.cuda.synchronize()
@@ -3122,7 +3141,12 @@ def run_train_path(arch: str, counters: dict, source, smi: str) -> dict:
         norms.append(float(met["grad_norm"]))
         seconds.append(time.perf_counter() - t0)
     out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-    out.update(losses=losses, grad_norms=norms, step_s=seconds)
+    out.update(losses=losses, grad_norms=norms,
+               step_s={"first (eager + capture)": seconds[0],
+                       "replays": seconds[1:]},
+               capture_ms=step.capture_ms, pool_bytes=step.pool_bytes,
+               launches_a_replay={k.name: n
+                                  for k, n in step.launches.items()})
     if not all(math.isfinite(v) for v in losses + norms):
         raise RuntimeError(f"{arch}: non-finite train loss or grad norm "
                            f"({losses}, {norms})")
@@ -3139,11 +3163,16 @@ def run_train_path(arch: str, counters: dict, source, smi: str) -> dict:
             raise RuntimeError(f"{arch}: first step {what} {got} is "
                                f"{abs(got - want):.3e} from the stock f32 "
                                f"step's {want} (limit {limit:.3e})")
-    log(f"[train] {arch} offload plan, {steps} AdamW steps: losses "
+    log(f"[train] {arch} offload plan, {steps} AdamW steps through the "
+        f"captured step: losses "
         + ", ".join(f"{v:.4f}" for v in losses) + "; grad norms "
-        + ", ".join(f"{v:.4f}" for v in norms) + "; step s "
-        + ", ".join(f"{v:.3f}" for v in seconds)
-        + f"; peak device memory {out['peak_gb']:.2f} GB")
+        + ", ".join(f"{v:.4f}" for v in norms) + "; step s: first (eager "
+        f"+ capture) {seconds[0]:.3f}, replays "
+        + ", ".join(f"{v:.3f}" for v in seconds[1:])
+        + f"; capture {step.capture_ms:.1f} ms, private pool "
+        f"{step.pool_bytes} B, launches a replay "
+        + json.dumps(out["launches_a_replay"])
+        + f"; peak device memory {out['peak_gb']:.2f} GB; {smi}")
     del params, opt, step, model, stock, batches
     gc.collect()
     torch.cuda.empty_cache()
@@ -3184,17 +3213,148 @@ def run_train_path(arch: str, counters: dict, source, smi: str) -> dict:
     return out
 
 
+def _state_tensors(state: dict, prefix: str = "") -> dict:
+    """path -> tensor of every tensor of a nested optimizer-state dict."""
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out.update(_state_tensors(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def train_graph_case(arch: str) -> dict:
+    """One model's ``TrainGraph`` against ``make_train_step`` at published
+    width, TRAIN_GRAPH_LAYERS[arch] layers, train_4k_b4 under the offload
+    plan, deterministic algorithms on (set by the caller): from the same
+    seeded weights, TRAIN_GRAPH_STEPS eager steps (their end state kept on
+    the host, so that one model's state at a time lies on the card), then
+    as many graph steps (the first eager with the capture, the rest
+    replays).  Returns the tensors that differ (none when bit for bit),
+    one eager step's launches and a replay's, and the capture's ms and
+    pool bytes."""
+    import dataclasses
+    import gc
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import get_shape
+    from repro_torch.kernels import flash_attention, mriq, rglru, ssd, swiglu
+    from repro_torch.models.model import Model
+    from repro_torch.train.step import (TrainGraph, make_opt_init,
+                                        make_train_step)
+    kernels = [m.KERNEL for m in (mriq, flash_attention, swiglu, ssd, rglru)]
+    t0 = time.perf_counter()
+    pub = get_config(arch)
+    layers = TRAIN_GRAPH_LAYERS[arch]
+    cfg = dataclasses.replace(pub, n_layers=layers)
+    batches = train_batches(cfg, get_shape(TRAIN_SHAPE), TRAIN_GRAPH_STEPS)
+    model = Model(cfg, cfg.plan.replace(**OFFLOAD))
+
+    def run(step):
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        opt = make_opt_init(model)(params)
+        mets, first = [], None
+        for b in batches:
+            counts = [k.launches for k in kernels]
+            params, opt, met = step(params, opt, b)
+            mets.append([met["loss"].clone(), met["grad_norm"].clone()])
+            if first is None:
+                first = {k.name: k.launches - n
+                         for k, n in zip(kernels, counts) if k.launches != n}
+        torch.cuda.synchronize()
+        return params, opt, [[float(v) for v in m] for m in mets], \
+            [[v.cpu() for v in m] for m in mets], first
+
+    ep, eo, eager_mets, emets, eager_launches = run(make_train_step(model))
+    host_p = {n: p.cpu() for n, p in ep.named_parameters()}
+    host_o = {k: t.cpu() for k, t in _state_tensors(eo).items()}
+    del ep, eo
+    gc.collect()
+    torch.cuda.empty_cache()
+    graph = TrainGraph(model)
+    gp, go, graph_mets, gmets, _ = run(graph)
+    differ = []
+    for i, (e, g) in enumerate(zip(emets, gmets)):
+        for what, a, b in zip(("loss", "grad norm"), e, g):
+            if not torch.equal(a, b):
+                differ.append(f"step {i + 1} {what}")
+    for n, p in gp.named_parameters():
+        if not torch.equal(p.cpu(), host_p[n]):
+            differ.append(f"parameter {n}")
+    for k, t in _state_tensors(go).items():
+        if not torch.equal(t.cpu(), host_o[k]):
+            differ.append(f"optimizer state {k}")
+    out = {"layers": layers, "of": pub.n_layers, "differ": differ,
+           "eager": eager_mets, "graph": graph_mets,
+           "eager_launches": eager_launches,
+           "launches_a_replay": {k.name: n
+                                 for k, n in graph.launches.items()},
+           "capture_ms": graph.capture_ms, "pool_bytes": graph.pool_bytes,
+           "n_params": len(host_p), "n_state": len(host_o)}
+    del gp, go, graph, host_p, host_o
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    return out
+
+
+def check_train_graph(res: dict) -> None:
+    """Log ``train_graph_case``'s result for each model and raise unless
+    the loss, the gradient norm, every parameter and every
+    optimizer-state tensor are bit for bit and a replay launches what one
+    eager step does, kernel by kernel."""
+    bad = []
+    for arch in TRAIN_GRAPH_LAYERS:
+        r = res[arch]
+        log(f"[train-graph] {arch}, layers {r['layers']} of {r['of']}, "
+            f"{TRAIN_SHAPE}, offload plan, deterministic: "
+            f"{TRAIN_GRAPH_STEPS} eager steps against {TRAIN_GRAPH_STEPS} "
+            f"graph steps (the first eager with the capture, then "
+            f"replays): "
+            + ("loss, grad norm, every parameter "
+               f"({r['n_params']}) and optimizer-state tensor "
+               f"({r['n_state']}) bit for bit" if not r["differ"] else
+               "differ in " + ", ".join(r["differ"]))
+            + "; losses " + ", ".join(f"{m[0]:.6f}" for m in r["graph"])
+            + "; grad norms " + ", ".join(f"{m[1]:.6f}" for m in r["graph"])
+            + f"; launches an eager step {json.dumps(r['eager_launches'])}"
+            f", a replay {json.dumps(r['launches_a_replay'])}; capture "
+            f"{r['capture_ms']:.1f} ms, private pool {r['pool_bytes']} B; "
+            f"{r['seconds']:.1f} s")
+        if r["differ"]:
+            bad.append(f"{arch}: {r['differ'][:20]}")
+        if r["eager_launches"] != r["launches_a_replay"] \
+                or not r["eager_launches"]:
+            bad.append(f"{arch}: a replay launches "
+                       f"{r['launches_a_replay']}, an eager step "
+                       f"{r['eager_launches']}")
+    log(f"[time] the train graph check: {res['seconds']:.1f} s in the "
+        f"train CLI's child")
+    if bad:
+        raise RuntimeError("train graph against the eager step: "
+                           + "; ".join(bad))
+
+
 def train_cli_child(root: str) -> int:
-    """The tiny-lm CLI on the card under the offload plan, deterministic
-    algorithms on (``CUBLAS_WORKSPACE_CONFIG`` set by the parent): an
-    uninterrupted run of CLI_STEPS steps, a run that fails at CLI_FAIL,
-    and its resume from the last checkpoint.  Prints one JSON line."""
+    """Deterministic algorithms on (``CUBLAS_WORKSPACE_CONFIG`` set by the
+    parent): first the captured train step against the eager one
+    (``train_graph_case`` for each of TRAIN_GRAPH_LAYERS, one JSON line),
+    then the tiny-lm CLI on the card under the offload plan, its launches
+    counted from 0: an uninterrupted run of CLI_STEPS steps, a run that
+    fails at CLI_FAIL, and its resume from the last checkpoint (one JSON
+    line)."""
     from repro_torch.configs import get_config
     from repro_torch.ft.driver import InjectedFailure
     from repro_torch.kernels import flash_attention, swiglu
     from repro_torch.launch import train as LT
     from repro_torch.models.model import Model
     torch.use_deterministic_algorithms(True)
+    t0 = time.perf_counter()
+    graph = {arch: train_graph_case(arch) for arch in TRAIN_GRAPH_LAYERS}
+    graph["seconds"] = time.perf_counter() - t0
+    print("GRAPH_RESULT " + json.dumps(graph), flush=True)
+    for k in (flash_attention.KERNEL, swiglu.KERNEL):
+        k.launches = 0
     cfg = get_config("tiny-lm")
     model = Model(cfg, cfg.plan.replace(**OFFLOAD))
     base = ["--arch", "tiny-lm", "--steps", str(CLI_STEPS), "--ckpt-every",
@@ -3220,10 +3380,11 @@ def train_cli_child(root: str) -> int:
 
 
 def phase_train_cli() -> dict:
-    """``launch.train.run`` on tiny-lm in a child process (deterministic
-    algorithms and their cuBLAS workspace stay out of the other phases):
-    the resumed losses equal the uninterrupted run's bit for bit, and the
-    loss falls."""
+    """The child process of ``train_cli_child`` (deterministic algorithms
+    and their cuBLAS workspace stay out of the other phases): the
+    captured train step against the eager one (``check_train_graph``),
+    then ``launch.train.run`` on tiny-lm: the resumed losses equal the
+    uninterrupted run's bit for bit, and the loss falls."""
     import os
     import shutil
     root = Path(__file__).resolve().parent / "artifacts" / "train_cli"
@@ -3235,11 +3396,14 @@ def phase_train_cli() -> dict:
                           capture_output=True, text=True, env=env,
                           timeout=600)
     for line in proc.stdout.splitlines():
-        if not line.startswith("CLI_RESULT"):
+        if not line.startswith(("CLI_RESULT", "GRAPH_RESULT")):
             log(f"[train-cli] {line}")
     if proc.returncode:
         raise RuntimeError(f"train CLI child exited {proc.returncode}: "
                            f"{proc.stderr[-3000:]}")
+    check_train_graph(json.loads(next(
+        line for line in proc.stdout.splitlines()
+        if line.startswith("GRAPH_RESULT"))[13:]))
     res = json.loads(next(line for line in proc.stdout.splitlines()
                           if line.startswith("CLI_RESULT"))[11:])
     want = res["ref"][CLI_FAIL - CLI_FAIL % CLI_EVERY:]
@@ -3585,6 +3749,7 @@ def main() -> int:
         torch.cuda.empty_cache()
         mark(f"train {arch}")
     cli = phase_train_cli()
+    mark("the train graph check and the train CLI")
     for name, n in cli["launches"].items():
         launches[name] += n
     log(f"[train] the train phase: {time.perf_counter() - t_train:.1f} s")

@@ -278,8 +278,10 @@ class MeasuredBackend:
     ``Model.prefill`` on the shape's batch; decode runs ``decode_steps``
     steps from a cache whose first ``seq_len - decode_steps`` positions
     hold seeded random values (a step's cost does not depend on them);
-    train runs whole train steps (loss, backward, the arch's optimizer:
-    ``train.step.make_train_step``) on seeded random tokens.  Parameters
+    train runs whole train steps (loss, backward, the arch's optimizer) on
+    seeded random tokens through ``train.step.TrainGraph``: on ``cuda``
+    the warm-up call is the eager step and the step's capture as a CUDA
+    graph, and each timed call a replay.  Parameters
     come from one seeded generator per architecture, shared across plans
     (a plan changes no parameter); ``params`` may hold loaded ones, by
     arch name.  A train trial makes its own parameters and optimizer state
@@ -384,13 +386,15 @@ class MeasuredBackend:
                      rng: np.random.Generator,
                      sync) -> Callable[[], torch.Tensor]:
         """One call is one train step on the trial's own parameters and
-        optimizer state (made from ``seed``); it returns the step's loss."""
-        from repro_torch.train.step import make_opt_init, make_train_step
+        optimizer state (made from ``seed``); it returns the step's loss.
+        The step is a ``TrainGraph``: its first call captures it on
+        ``cuda``, the later calls replay it."""
+        from repro_torch.train.step import TrainGraph, make_opt_init
         cfg = model.cfg
         gen = torch.Generator(device=dev).manual_seed(self.seed)
         state = {"params": model.init(gen)}
         state["opt"] = make_opt_init(model)(state["params"])
-        step = make_train_step(model)
+        step = TrainGraph(model)
         toks = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (shape.global_batch, shape.seq_len + 1))
             .astype(np.int32)).to(dev)

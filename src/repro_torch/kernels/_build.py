@@ -13,12 +13,14 @@ builds its library at first use.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
+import time
 from pathlib import Path
 from typing import Iterable, Optional
 
@@ -35,7 +37,55 @@ c_int = ctypes.c_int
 
 #: every ``CudaKernel`` made, in order: a captured CUDA graph reads their
 #: counts around its capture to count its replays' launches
+#: (``recorded_launches``, ``add_launches``)
 KERNELS: list["CudaKernel"] = []
+
+
+@contextlib.contextmanager
+def recorded_launches():
+    """Around a CUDA graph's capture: yields a dict that, once the block
+    ends, holds the launches each kernel recorded in it (``CudaKernel ->
+    n``, the kernels that recorded none left out).  A capture runs
+    nothing, so every count is then put back as it was before the block,
+    also when the block raises."""
+    counts = [k.launches for k in KERNELS]
+    recorded: dict = {}
+    try:
+        yield recorded
+    finally:
+        # a kernel made inside the block (its module imported there)
+        # counted from 0
+        for i, k in enumerate(KERNELS):
+            n = counts[i] if i < len(counts) else 0
+            if k.launches != n:
+                recorded[k] = k.launches - n
+            k.launches = n
+
+
+def add_launches(recorded: dict) -> None:
+    """One replay of a graph whose capture recorded ``recorded``: add its
+    launches to each kernel's count (a replay calls no launcher)."""
+    for k, n in recorded.items():
+        k.launches += n
+
+
+def capture_graph(fn, dev: torch.device) -> tuple:
+    """``fn()`` captured once as a CUDA graph on ``dev``, after the caller
+    has run it eagerly (which builds and loads every kernel library and
+    sets its attributes outside the capture).  Returns ``(graph, fn's
+    output, the launches it recorded, the capture's ms, the bytes its
+    private pool took)``.  The capture empties the allocator's cache as it
+    begins; it is emptied first, so that what is reserved after it is the
+    pool's growth."""
+    torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved(dev)
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    with recorded_launches() as launches, torch.cuda.graph(graph):
+        out = fn()
+    torch.cuda.synchronize(dev)
+    return (graph, out, launches, (time.perf_counter() - t0) * 1e3,
+            torch.cuda.memory_reserved(dev) - reserved)
 
 
 def nvcc() -> str:
@@ -109,8 +159,8 @@ class CudaKernel:
     ``launch`` adds one to ``launches`` each time it calls the launcher —
     and nowhere else — so a run can show that its path went through the
     kernel; a captured CUDA graph that holds launches adds them on each
-    replay (``serve.engine.DecodeGraph``).  A non-zero CUDA error from the
-    launcher raises."""
+    replay (``serve.engine.DecodeGraph``, ``train.step.TrainGraph``).  A
+    non-zero CUDA error from the launcher raises."""
 
     def __init__(self, name: str, argtypes: list):
         self.name = name

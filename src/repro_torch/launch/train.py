@@ -10,7 +10,11 @@ Counterpart of ``repro.launch.train``: runs the fault-tolerant driver on
 learnable data, the arch's optimizer, periodic atomic checkpoints,
 straggler accounting, optional failure injection (to demo
 checkpoint-restart end to end: the run stops at the failure, and a second
-run with ``--resume`` continues from the last checkpoint).  Checkpoints
+run with ``--resume`` continues from the last checkpoint).  The step is
+``train.step.TrainGraph``, the reference's jitted step with its buffers
+donated: on ``cuda`` captured once as a CUDA graph and replayed for every
+later step (captured again after a restore, which brings new optimizer
+state).  Checkpoints
 go to ``--ckpt-dir``, by default ``artifacts/torch/train_ckpt`` (the
 reference's CLI keeps ``artifacts/train_ckpt``).
 ``run(args, model=None)`` is the library entry; ``model`` trains a model
@@ -32,7 +36,7 @@ from repro_torch.configs import get_config
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.ft.driver import FailureInjector, TrainDriver
 from repro_torch.models.model import Model
-from repro_torch.train.step import make_opt_init, make_train_step
+from repro_torch.train.step import TrainGraph, make_opt_init
 
 
 def parser() -> argparse.ArgumentParser:
@@ -72,7 +76,7 @@ def run(args, model: Optional[Model] = None) -> dict:
     data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=args.seq,
                           global_batch=args.batch)
     driver = TrainDriver(
-        model=model, train_step=make_train_step(model),
+        model=model, train_step=TrainGraph(model),
         opt_init=make_opt_init(model), data_cfg=data_cfg,
         ckpt_dir=args.ckpt_dir, ckpt_every=args.ckpt_every,
         injector=FailureInjector(fail_at=set(args.fail_at)) if args.fail_at

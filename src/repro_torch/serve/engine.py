@@ -41,7 +41,7 @@ import torch
 
 from repro_torch import obs
 from repro_torch.device import DeviceLike, resolve_device
-from repro_torch.kernels._build import KERNELS
+from repro_torch.kernels._build import add_launches, capture_graph
 from repro_torch.models.model import Model
 from repro_torch.telemetry.dvfs import LiveUtilization
 from repro_torch.telemetry.energy import (IDLE_PHASE, INFRA_TENANT,
@@ -96,27 +96,16 @@ class DecodeGraph:
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         del warm
-        counts = [k.launches for k in KERNELS]
-        # the capture empties the allocator's cache as it begins: empty it
-        # first, so that what is reserved after it is the pool's growth
-        torch.cuda.empty_cache()
-        reserved = torch.cuda.memory_reserved(dev)
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.no_grad(), torch.cuda.graph(self.graph):
-            self.logits, _ = step(params, batch, cache)
-        torch.cuda.synchronize(dev)
-        self.capture_ms = (time.perf_counter() - t0) * 1e3
-        self.pool_bytes = torch.cuda.memory_reserved(dev) - reserved
-        self.launches = {k: k.launches - n for k, n in zip(KERNELS, counts)
-                         if k.launches != n}
-        for k, n in zip(KERNELS, counts):
-            k.launches = n
+
+        @torch.no_grad()
+        def logits():
+            return step(params, batch, cache)[0]
+        (self.graph, self.logits, self.launches, self.capture_ms,
+         self.pool_bytes) = capture_graph(logits, dev)
 
     def replay(self) -> torch.Tensor:
         self.graph.replay()
-        for k, n in self.launches.items():
-            k.launches += n
+        add_launches(self.launches)
         return self.logits
 
 

@@ -24,12 +24,18 @@ when ``plan.fused_grad_reduce`` — once more after the accumulation, as the
 reference pins its gradients with ``with_sharding_constraint``.  On the
 one card's ``(1, 1)`` mesh every placement is ``Replicate()`` and a pin
 moves nothing.
+
+``TrainGraph(model)`` is the port's ``jax.jit(make_train_step(model),
+donate_argnums=(0, 1))``: the same call, the new optimizer state written
+into the tensors it was given, and on ``cuda`` the step captured once as a
+CUDA graph and replayed for every later call (its docstring).
 """
 from __future__ import annotations
 
 import torch
 
 from repro_torch.convert import leaf_groups
+from repro_torch.kernels._build import add_launches, capture_graph
 from repro_torch.models.layers import dtype_of
 from repro_torch.models.model import Model
 from repro_torch.train import compress as C
@@ -177,3 +183,128 @@ def make_train_step(model: Model, rules=None):
         return params, new_state, {"loss": loss, "grad_norm": gnorm}
 
     return train_step
+
+
+@torch.no_grad()
+def donate(state: dict, new: dict) -> dict:
+    """Write each tensor of ``new`` into the tensor at the same place of
+    ``state`` (nested dicts of one structure) where they are not the same
+    tensor, and return ``state``: the reference's donated buffers, whose
+    storage the next step's state reuses."""
+    for k, v in new.items():
+        if isinstance(v, dict):
+            donate(state[k], v)
+        elif v is not state[k]:
+            state[k].copy_(v)
+    return state
+
+
+class TrainGraph:
+    """``make_train_step(model)`` as the reference runs it,
+    ``jax.jit(make_train_step(model), donate_argnums=(0, 1))``: called as
+    ``step(params, opt_state, batch) -> (params, opt_state, metrics)``.
+
+    Donation: the step writes the parameters in place, as
+    ``make_train_step`` does, and writes the new optimizer state (the
+    error-feedback buffers and the ``step`` counter included) into the
+    tensors of ``opt_state`` (``donate``); it returns the objects it was
+    given.
+
+    On ``cuda`` the first call with a ``(params, opt_state)`` pair copies
+    the batch into static buffers, runs one eager step on them on a side
+    stream (a real step, whose results it returns), which builds and loads
+    every kernel library and sets its attributes outside the capture, then
+    empties the allocator's cache and captures the step once — forward,
+    backward, clip and optimizer update.  Each later call copies its batch
+    into the static buffers, replays the graph and returns the metrics in
+    the graph's own output tensors, which the next replay overwrites.  A
+    batch of another shape or dtype raises.  A call with other ``params``
+    or ``opt_state`` objects (after a checkpoint restore) frees the old
+    graph and captures the step again.  A capture or a replay that fails
+    raises, and so does every later call on the same pair: nothing runs
+    eagerly in the graph's place (the eager step before a failed capture
+    has run).
+
+    A replay makes no call to a kernel's Python launcher, so the graph
+    keeps the launches its capture recorded (``launches``, per
+    ``CudaKernel``) and adds them to each kernel's count on every replay;
+    the capture's own recorded launches ran nothing and are not counted.
+    ``capture_ms`` is the capture's wall time (the eager step apart),
+    ``pool_bytes`` the device memory the graph's private pool took,
+    ``binds`` the number of ``(params, opt_state)`` pairs bound so far.
+
+    On the CPU there is no capture: each call is the eager step and the
+    write-back, with the same checks of the batch.
+
+    The step under ``rules`` (``DTensor`` parameters) is not captured:
+    ``rules`` raises, and ``make_train_step(model, rules)`` runs it
+    eagerly."""
+
+    def __init__(self, model: Model, rules=None):
+        if rules is not None:
+            raise NotImplementedError(
+                "TrainGraph does not capture the step under rules (DTensor "
+                "parameters): run make_train_step(model, rules) eagerly")
+        self.model = model
+        self.step = make_train_step(model)
+        self.graph = None
+        self.metrics = None
+        self.capture_ms = None
+        self.pool_bytes = None
+        self.launches: dict = {}
+        self.binds = 0
+        self._bound = None
+        self._spec = None
+        self._static = None
+
+    def _eager(self, params, opt_state, batch):
+        params, new, metrics = self.step(params, opt_state, batch)
+        return params, donate(opt_state, new), metrics
+
+    def __call__(self, params, opt_state, batch):
+        spec = {k: (tuple(v.shape), v.dtype) for k, v in batch.items()}
+        bound = self._bound
+        if bound is None or bound[0] is not params \
+                or bound[1] is not opt_state:
+            return self._bind(params, opt_state, batch, spec)
+        if spec != self._spec:
+            raise ValueError(f"TrainGraph was bound to batches of "
+                             f"{self._spec}, got {spec}")
+        if self.model.device.type != "cuda":
+            return self._eager(params, opt_state, batch)
+        if self.graph is None:
+            raise RuntimeError("TrainGraph: the step's capture failed for "
+                               "these params and opt_state; nothing runs "
+                               "eagerly in its place")
+        for k, v in batch.items():
+            self._static[k].copy_(v)
+        self.graph.replay()
+        add_launches(self.launches)
+        return params, opt_state, self.metrics
+
+    def _bind(self, params, opt_state, batch, spec):
+        # free the old graph and its pool before anything new is made
+        self.graph = self.metrics = self._static = None
+        self.capture_ms = self.pool_bytes = None
+        self.launches = {}
+        self._spec = spec
+        self.binds += 1
+        dev = self.model.device
+        self._bound = (params, opt_state)
+        if dev.type != "cuda":
+            return self._eager(params, opt_state, batch)
+        static = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                  for k, v in batch.items()}
+        for k, v in batch.items():
+            static[k].copy_(v)
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        with torch.cuda.stream(side):
+            out = self._eager(params, opt_state, static)
+        torch.cuda.current_stream(dev).wait_stream(side)
+        torch.cuda.synchronize(dev)
+        (self.graph, self.metrics, self.launches, self.capture_ms,
+         self.pool_bytes) = capture_graph(
+            lambda: self._eager(params, opt_state, static)[2], dev)
+        self._static = static
+        return out

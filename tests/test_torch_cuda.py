@@ -1251,3 +1251,134 @@ def test_decode_graph_recaptures_when_params_are_swapped(cuda):
     assert second is not first
     loop.decode(toks, 3)
     assert loop.graph is second
+
+
+# ---------------------------------------------------------------------------
+# The train step as a captured CUDA graph (train.step.TrainGraph)
+# ---------------------------------------------------------------------------
+
+TRAIN_GRAPH_STEPS = 4
+
+
+def _train_graph_model():
+    """tiny-lm under the offload plan, full remat over two microbatches,
+    and four seeded batches of 2 x 128 tokens on the card."""
+    cfg = get_config("tiny-lm")
+    model = Model(cfg, cfg.plan.replace(**OFFLOAD, remat="full",
+                                        microbatches=2), device="cuda")
+    rng = np.random.default_rng(4)
+    batches = []
+    for _ in range(TRAIN_GRAPH_STEPS):
+        t = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 129))
+                             .astype(np.int32)).cuda()
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+    return model, batches
+
+
+def _train_state(model):
+    from repro_torch.train.step import make_opt_init
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    return params, make_opt_init(model)(params)
+
+
+def _state_tensors(state, prefix=""):
+    out = {}
+    for k, v in state.items():
+        if isinstance(v, dict):
+            out.update(_state_tensors(v, f"{prefix}{k}/"))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+@pytest.fixture
+def deterministic(monkeypatch):
+    """Deterministic algorithms (the embedding's backward accumulates with
+    atomics otherwise) with cuBLAS's deterministic workspace setting."""
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    torch.use_deterministic_algorithms(True)
+    yield
+    torch.use_deterministic_algorithms(False)
+
+
+def test_train_graph_replays_the_eager_step_bit_for_bit(cuda, deterministic):
+    """The first call is the eager step (and the capture), the next three
+    are replays: the loss, the gradient norm, every parameter and every
+    optimizer-state tensor equal ``make_train_step``'s from the same
+    weights, step by step; the state keeps its storage.  New optimizer
+    state captures the step again."""
+    from repro_torch.train.step import TrainGraph, make_train_step
+    model, batches = _train_graph_model()
+    params, state = _train_state(model)
+    gparams, gstate = _train_state(model)
+    ptrs = {k: t.data_ptr() for k, t in _state_tensors(gstate).items()}
+    step, graph = make_train_step(model), TrainGraph(model)
+    for i, b in enumerate(batches):
+        params, state, met = step(params, state, b)
+        gparams, gstate, gmet = graph(gparams, gstate, b)
+        if i == 0:
+            first = graph.graph
+            assert first is not None and graph.pool_bytes > 0
+        assert graph.graph is first and graph.binds == 1
+        for key in ("loss", "grad_norm"):
+            assert torch.equal(gmet[key], met[key]), (i, key)
+        want, got = _state_tensors(state), _state_tensors(gstate)
+        for path, t in want.items():
+            assert torch.equal(got[path], t), (i, path)
+        assert {k: t.data_ptr() for k, t in got.items()} == ptrs
+        for (n, p), q in zip(params.named_parameters(),
+                             gparams.parameters()):
+            assert torch.equal(q, p), (i, n)
+    assert int(gstate["step"]) == TRAIN_GRAPH_STEPS
+    other = {k: v for k, v in gstate.items()}
+    graph(gparams, other, batches[0])
+    assert graph.binds == 2 and graph.graph is not first
+
+
+def test_train_graph_counts_its_replayed_launches(cuda):
+    """A replay adds the launches one eager step makes, kernel by kernel;
+    the capture itself counts none."""
+    from repro_torch.train.step import TrainGraph, make_train_step
+    model, batches = _train_graph_model()
+    kernels = (FA.KERNEL, SG.KERNEL)
+    params, state = _train_state(model)
+    n0 = [k.launches for k in kernels]
+    make_train_step(model)(params, state, batches[0])
+    eager = {k: k.launches - n for k, n in zip(kernels, n0)}
+    assert all(eager.values())
+    params, state = _train_state(model)
+    graph = TrainGraph(model)
+    n0 = [k.launches for k in kernels]
+    graph(params, state, batches[0])
+    assert graph.launches == eager
+    for b in batches[1:]:
+        graph(params, state, b)
+    assert [k.launches - n for k, n in zip(kernels, n0)] \
+        == [len(batches) * eager[k] for k in kernels]
+
+
+def test_train_graph_refuses_a_host_sync_in_the_step(cuda, monkeypatch):
+    """A step that reads a value back to the host (``.item()``) cannot be
+    captured: the call raises after its eager step, and the next call on
+    the same state raises without running anything."""
+    from repro_torch.train.step import TrainGraph
+    model, batches = _train_graph_model()
+    params, state = _train_state(model)
+    loss = model.loss
+
+    def syncing(*args, **kw):
+        out = loss(*args, **kw)
+        out[0].item()
+        return out
+    monkeypatch.setattr(model, "loss", syncing)
+    graph = TrainGraph(model)
+    with pytest.raises(RuntimeError):
+        graph(params, state, batches[0])
+    assert graph.graph is None and int(state["step"]) == 1
+    before = [p.clone() for p in params.parameters()]
+    n0 = FA.KERNEL.launches
+    with pytest.raises(RuntimeError, match="capture failed"):
+        graph(params, state, batches[1])
+    assert FA.KERNEL.launches == n0 and int(state["step"]) == 1
+    for p, q in zip(params.parameters(), before):
+        assert torch.equal(p, q)
