@@ -120,8 +120,10 @@ a non-zero exit and no result line:
                        requests: exactly one migration judged, the
                        pending plan and the incumbent each measured on
                        the card at decode_32k_b8 (a 32k cache at batch 8,
-                       16 decode steps a call, a 5-s NVML window), neither
-                       a penalty; the event and both trials printed;
+                       16 decode steps a call, each a replay of the trial's
+                       captured decode step, a 5-s NVML window), neither
+                       a penalty; the event and both trials printed, each
+                       with its capture's ms and pool bytes;
                        then the ledger and spans of (a) rendered on the
                        host by the port's own readers
                        (``repro_torch.scripts.power_report --ledger`` and
@@ -136,8 +138,14 @@ a non-zero exit and no result line:
                        cache and every shape's batch, each spec replicated;
                        (b) the arch's plan and ``optimized_plan(arch,
                        "decode")`` (int8 KV cache) measured on that mesh at
-                       decode_32k_b8, each NVML window checked, each plan's
-                       last logits held to the other's (PREFILL_TOL);
+                       decode_32k_b8, each trial's decode step captured
+                       under the plan's rules and replayed (the capture's
+                       ms and pool bytes logged), each NVML window checked,
+                       each plan's last logits held to the other's
+                       (PREFILL_TOL), and for each plan one replayed call
+                       held to one eager call from the same cache state
+                       (logits and cache bit for bit, else named and within
+                       GRAPH_REL of the tensor's max);
                        (c) a 256-chip, 16-way TP context, which the
                        measured rung must refuse; the group destroyed;
   6. profile  qwen2-7b's 8 requests served again (the graph captured
@@ -230,24 +238,33 @@ a non-zero exit and no result line:
               resumed losses equal the uninterrupted run's bit for bit
               and the loss falls;
  10. pod      the pod-scale half, counted as a path of its own (the
-              rules step's launches: flash_attention and swiglu must each
-              launch once a layer, microbatch and remat pass), in at most
-              POD_BUDGET_S: (a) qwen2-7b at published width on POD_LAYERS
-              layers, one AdamW step at train_4k_b4 under the offload plan
-              with fused_grad_reduce, with ``rules`` on
-              ``make_host_mesh()`` (the one-rank NCCL group; parameters and
-              AdamW state as DTensors at the plan's placements, each shard
-              the whole on one rank; every layer kind through the
-              tensor-parallel regions of ``parallel.tp``, which must be
-              the route each kind ran, the kernels inside on the local
-              tensors), its loss and gradient norm held to the
-              same step without rules from the same weights and batch (bit
-              for bit, else the gap printed and held under 2^-8
-              relative); (b) ``train.compress.compressed_psum`` on a CUDA
-              tensor over that group, within one quantization step of its
-              input; (c) the step's first layer's DTensor attention and
-              norm parameters saved and restored onto the mesh's
-              placements, bit for bit;
+              rules steps' launches: flash_attention and swiglu must each
+              launch once a layer, microbatch and remat pass in the first
+              rules step, and a replay as often), in at most POD_BUDGET_S,
+              (a)-(c) under deterministic algorithms: (a) qwen2-7b at
+              published width on POD_LAYERS layers, AdamW steps at
+              train_4k_b4 under the offload plan with fused_grad_reduce:
+              one step without rules, then POD_GRAPH_STEPS steps with
+              ``rules`` on ``make_host_mesh()`` (the one-rank NCCL group;
+              parameters and AdamW state as DTensors at the plan's
+              placements, each shard the whole on one rank; every layer
+              kind through the tensor-parallel regions of ``parallel.tp``,
+              which must be the route each kind ran, the kernels inside on
+              the local tensors), eagerly, and as many through
+              ``TrainGraph(model, rules)`` (the first eager with the
+              capture, then replays) from the same seed: the first rules
+              step's loss and gradient norm held to the step without rules
+              (bit for bit, else the gap printed and held under 2^-8
+              relative); the graph's steps to the eager rules steps bit
+              for bit (loss, gradient norm, every local shard of the
+              parameters and the state), a replay launching what an eager
+              step launches; the collectives an eager rules step and the
+              graph's first call issue (``CommDebugMode``), the capture's
+              ms and pool bytes; (b) ``train.compress.compressed_psum`` on
+              a CUDA tensor over that group, within one quantization step
+              of its input; (c) the graph's first layer's DTensor
+              attention and norm parameters saved and restored onto the
+              mesh's placements, bit for bit;
               then on the host, the card idle, in a child process: (d)
               the compiled rung (``core.backends.CompiledBackend``): one
               trial of qwen2-7b at full depth, decode_32k on pod16x16 (the
@@ -268,6 +285,7 @@ not beside it.  The last line is
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import re
@@ -1789,9 +1807,20 @@ def check_fleet_run(out: dict, vocab: int, ledger_path: Path) -> dict:
             "wall_s": out["wall_s"]}
 
 
+def trial_graph(name: str, m) -> dict:
+    """The captured graph of a measured decode or train trial (its capture
+    ms and pool bytes); raises when the trial ran eagerly."""
+    graph = m.trace.meta["graph"]
+    if graph is None:
+        raise RuntimeError(f"{name}: the trial ran eagerly, not as a "
+                           f"captured graph")
+    return graph
+
+
 def report_trials(what: str, trials: list) -> list:
     """Each measured trial of a governor's re-verification: its window
-    must pass the counter check and be no penalty."""
+    must pass the counter check, be no penalty and replay a captured
+    graph."""
     from repro_torch.core.backends import plan_tag
     from repro_torch.telemetry.nvml import check_window
     rows = []
@@ -1802,17 +1831,19 @@ def report_trials(what: str, trials: list) -> list:
         if not m.ok:
             raise RuntimeError(f"{name}: PENALTY {m.error}")
         check_window(name, m.trace.meta["counter"])
+        graph = trial_graph(name, m)
         log(f"{name}: {m.seconds:.4f} s, {m.watts:.2f} W, {m.energy_j:.3f} "
-            f"Ws a call of {m.trace.meta['calls']} (16 decode steps, card-"
-            f"only), fitness {m.fitness():.6f}, peak "
+            f"Ws a call of {m.trace.meta['calls']} (16 decode steps, each "
+            f"a graph replay, card-only), fitness {m.fitness():.6f}, peak "
             f"{m.peak_mem_per_chip / 1e9:.2f} GB, launches "
-            f"{m.trace.meta['launches']}")
+            f"{m.trace.meta['launches']}; captured in "
+            f"{graph['capture_ms']:.1f} ms, pool {graph['pool_bytes']} B")
         rows.append({"plan": plan_tag(plan), "attn_impl": plan.attn_impl,
                      "mlp_impl": plan.mlp_impl, "seconds": m.seconds,
                      "watts": m.watts, "ws": m.energy_j,
                      "fitness": m.fitness(),
                      "calls": m.trace.meta["calls"],
-                     "peak_gb": m.peak_mem_per_chip / 1e9})
+                     "peak_gb": m.peak_mem_per_chip / 1e9, **graph})
     return rows
 
 
@@ -2015,6 +2046,46 @@ def run_fleet(model, params, source, counters: dict) -> dict:
 PLANS_SHAPE = "decode_32k_b8"
 
 
+def replay_vs_eager(rung, model, shape, rules) -> dict:
+    """The measured rung's decode trial of ``model`` under ``rules``
+    (``MeasuredBackend.make_trial``): after its first call (the capture),
+    one replayed call and one eager call (``DecodeTrial.eager``) from the
+    same cache state, their logits and every cache tensor compared.
+    Returns what differs (name -> (max_err, tol), none when bit for bit)
+    and the two calls' wall times; raises when a difference exceeds
+    GRAPH_REL of that tensor's max |value|."""
+    trial = rung.make_trial(model, rung.weights(model), shape, model.device,
+                            rules)
+    trial()
+    start = _cache_copy(trial.cache)
+    t0 = time.perf_counter()
+    got = trial()
+    replay_s = time.perf_counter() - t0
+    replayed = _cache_copy(trial.cache)
+    for c, s0 in zip(trial.cache, start):
+        for k, t in c.items():
+            t.copy_(s0[k])
+    del start
+    t0 = time.perf_counter()
+    want = trial.eager()
+    eager_s = time.perf_counter() - t0
+    pairs = [("logits", got, want)] + [
+        (f"layer {i} {k}", r[k], c[k])
+        for i, (r, c) in enumerate(zip(replayed, trial.cache)) for k in c]
+    differ = {}
+    for name, a, b in pairs:
+        if not torch.equal(a, b):
+            a, b = a.float(), b.float()
+            differ[name] = (float((a - b).abs().max()),
+                            GRAPH_REL * float(b.abs().max()))
+    bad = {k: v for k, v in differ.items() if v[0] > v[1]}
+    if bad:
+        raise RuntimeError(f"the replayed decode call is beyond "
+                           f"{GRAPH_REL} max|value| of the eager call in "
+                           f"{bad}")
+    return {"differ": differ, "eager_s": eager_s, "replay_s": replay_s}
+
+
 def phase_plans(model, params, source) -> dict:
     """The sharding plan on the card, on qwen2-7b's loaded weights cut to
     OFFLOAD_LAYERS.  (a) ``make_host_mesh()``: the (1, 1) mesh over its own
@@ -2022,9 +2093,12 @@ def phase_plans(model, params, source) -> dict:
     optimized plans resolved over the parameters, a decode_32k_b8 cache
     (on the meta device) and each shape's batch, every spec replicated;
     (b) the arch's plan and ``optimized_plan(arch, "decode")`` (int8 KV
-    cache) measured on that mesh, each window checked and each plan's last
-    logits held to the other's; (c) a 256-chip, 16-way TP context refused
-    by the measured rung.  The group is destroyed at the end."""
+    cache) measured on that mesh, each trial's decode step captured and
+    replayed, each window checked and each plan's last logits held to the
+    other's, and for each plan one replayed call held to one eager call
+    from the same cache state (``replay_vs_eager``); (c) a 256-chip,
+    16-way TP context refused by the measured rung.  The group is
+    destroyed at the end."""
     import dataclasses
 
     import torch.distributed as dist
@@ -2087,22 +2161,39 @@ def phase_plans(model, params, source) -> dict:
                                "context on a one-card mesh")
         for name in ("arch", "decode"):
             p = plans[name]
-            m = rung.measure(MeasureContext(cfg, PLANS_SHAPE), p)
+            ctx = MeasureContext(cfg, PLANS_SHAPE)
+            m = rung.measure(ctx, p)
             what = (f"[plans] {name} plan {plan_tag(p)} ({p.attn_impl} "
                     f"attention, {p.mlp_impl} mlp, {p.kv_cache_dtype} cache) "
                     f"at {PLANS_SHAPE}")
             if not m.ok:
                 raise RuntimeError(f"{what}: PENALTY {m.error}")
             check_window(what, m.trace.meta["counter"])
+            graph = trial_graph(what, m)
             out["trials"][name] = {
                 "plan": plan_tag(p), "kv_cache_dtype": p.kv_cache_dtype,
                 "seconds": m.seconds, "watts": m.watts, "ws": m.energy_j,
                 "calls": m.trace.meta["calls"],
-                "peak_gb": m.peak_mem_per_chip / 1e9}
+                "peak_gb": m.peak_mem_per_chip / 1e9, **graph}
             log(f"{what}: {m.seconds:.4f} s, {m.watts:.2f} W, "
-                f"{m.energy_j:.3f} Ws a call of 16 decode steps (card-only), "
-                f"{m.trace.meta['calls']} calls, peak "
-                f"{m.peak_mem_per_chip / 1e9:.2f} GB")
+                f"{m.energy_j:.3f} Ws a call of 16 decode steps, each a "
+                f"graph replay (card-only), {m.trace.meta['calls']} calls, "
+                f"peak {m.peak_mem_per_chip / 1e9:.2f} GB; captured in "
+                f"{graph['capture_ms']:.1f} ms, pool {graph['pool_bytes']} "
+                f"B")
+            held = replay_vs_eager(rung, Model(dataclasses.replace(
+                cfg, plan=p), p, model.device), ctx.shape,
+                make_rules(dataclasses.replace(cfg, plan=p), dm, p))
+            out["trials"][name]["replay_vs_eager"] = held
+            log(f"[plans] {name} plan: one replayed call against one eager "
+                f"call from the same cache state: "
+                + ("logits and every cache tensor bit for bit"
+                   if not held["differ"] else
+                   "differ in " + ", ".join(
+                       f"{k} (max_err {e:.3e}, tol {t:.3e})"
+                       for k, (e, t) in held["differ"].items()))
+                + f"; eager call {held['eager_s']:.4f} s, replayed "
+                f"{held['replay_s']:.4f} s")
         a = rung.outputs[plan_tag(plans["arch"])]
         b = rung.outputs[plan_tag(plans["decode"])]
         tol = PREFILL_TOL[cfg.name] * float(a.abs().max())
@@ -3437,6 +3528,7 @@ def phase_train_cli() -> dict:
 #: chip-hour and one a kWh, an operator's assumption for the smoke run,
 #: not a price
 POD_LAYERS = 2
+POD_GRAPH_STEPS = 3
 POD_BUDGET_S = 45.0
 POD_SLICES = (64, 128, 256, 512)
 POD_REL = 2.0 ** -8
@@ -3444,24 +3536,124 @@ POD_REL = 2.0 ** -8
 POD_KINDS = {"attn", "embed", "logits", "loss", "mlp"}
 
 
-def pod_step(cfg, plan, batch, rules=None):
-    """One AdamW step of ``cfg`` under ``plan`` on weights made from seed 0
-    (``rules``: laid out on its mesh first); returns (params, loss, grad
-    norm)."""
-    from repro_torch.models.model import Model
+def pod_state(model, rules=None) -> tuple:
+    """``model``'s weights made from seed 0 and their AdamW state, laid out
+    on ``rules``' mesh when given."""
     from repro_torch.parallel.param_sharding import distribute
-    from repro_torch.train.step import make_opt_init, make_train_step
-    model = Model(cfg, plan)
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    from repro_torch.train.step import make_opt_init
+    params = model.init(torch.Generator(device=model.device).manual_seed(0))
     opt = make_opt_init(model)(params)
     if rules is not None:
         params, opt, _ = distribute(rules, params, opt)
-    params, opt, met = make_train_step(model, rules)(params, opt, batch)
-    loss, gnorm = met["loss"], met["grad_norm"]
-    if rules is not None:
-        loss, gnorm = loss.full_tensor(), gnorm.full_tensor()
-    del opt
-    return params, float(loss), float(gnorm)
+    return params, opt
+
+
+def whole(t) -> torch.Tensor:
+    """A ``DTensor`` read whole; a plain tensor as it is."""
+    return t.full_tensor() if hasattr(t, "full_tensor") else t
+
+
+@contextlib.contextmanager
+def deterministic():
+    """Deterministic algorithms for a block (the embedding's backward
+    accumulates with atomics otherwise), with cuBLAS's deterministic
+    workspace setting, which on the H100 is its default size."""
+    import os
+    before = os.environ.get("CUBLAS_WORKSPACE_CONFIG")
+    os.environ["CUBLAS_WORKSPACE_CONFIG"] = ":4096:8"
+    torch.use_deterministic_algorithms(True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        if before is None:
+            del os.environ["CUBLAS_WORKSPACE_CONFIG"]
+        else:
+            os.environ["CUBLAS_WORKSPACE_CONFIG"] = before
+
+
+def pod_rules_steps(model, rules, batches, counters: dict) -> dict:
+    """POD_GRAPH_STEPS AdamW steps of ``model`` under ``rules`` from seed
+    0, first eagerly (``make_train_step(model, rules)``, the state laid
+    back at its placements between steps as the graph does,
+    ``train.step.pin_state``), then through ``TrainGraph(model, rules)``
+    (the first call eager with the capture, then replays); deterministic
+    algorithms on (set by the caller).  Returns each side's losses and
+    grad norms, the tensors that differ (none when bit for bit: every
+    local shard of the parameters and the state), the first eager step's
+    routes, launches and collectives (``CommDebugMode``), a replay's
+    launches, the collectives of the graph's first call (its eager step
+    and the capture), the capture's ms and pool bytes, the graph's
+    parameters (for the checkpoint) and the wall times."""
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.parallel.tp import record_routes
+    from repro_torch.train.step import TrainGraph, make_train_step, pin_state
+
+    def counts():
+        return {name: k.launches for name, k in counters.items()}
+
+    def comm_counts(mode) -> dict:
+        return {str(op): n for op, n in mode.get_comm_counts().items()}
+    out: dict = {}
+    t0 = time.perf_counter()
+    params, opt = pod_state(model, rules)
+    step = make_train_step(model, rules)
+    eager = []
+    for i, b in enumerate(batches):
+        if i == 0:
+            n0 = counts()
+            with record_routes() as routes, CommDebugMode() as comm:
+                params, new, met = step(params, opt, b)
+            out["routes"] = dict(routes)
+            out["launches"] = {k: v - n0[k] for k, v in counts().items()}
+            out["eager_comm"] = comm_counts(comm)
+        else:
+            params, new, met = step(params, opt, b)
+        opt = pin_state(new, opt)
+        eager.append([whole(met["loss"]).clone(),
+                      whole(met["grad_norm"]).clone()])
+    torch.cuda.synchronize()
+    out["eager_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gparams, gopt = pod_state(model, rules)
+    graph = TrainGraph(model, rules)
+    graphed = []
+    for i, b in enumerate(batches):
+        if i == 0:
+            with CommDebugMode() as comm:
+                gparams, gopt, met = graph(gparams, gopt, b)
+            out["graph_comm"] = comm_counts(comm)
+            torch.cuda.synchronize()
+            out["first_s"] = time.perf_counter() - t0
+            t1 = time.perf_counter()
+        else:
+            gparams, gopt, met = graph(gparams, gopt, b)
+        graphed.append([whole(met["loss"]).clone(),
+                        whole(met["grad_norm"]).clone()])
+    torch.cuda.synchronize()
+    out["replay_s"] = (time.perf_counter() - t1) / (len(batches) - 1)
+    differ = []
+    for i, (e, g) in enumerate(zip(eager, graphed)):
+        for what, a, b in zip(("loss", "grad norm"), e, g):
+            if not torch.equal(a, b):
+                differ.append(f"step {i + 1} {what}")
+    for (n, p), q in zip(params.named_parameters(), gparams.parameters()):
+        if not torch.equal(p.to_local(), q.to_local()):
+            differ.append(f"parameter {n}")
+    gstate = _state_tensors(gopt)
+    for k, t in _state_tensors(opt).items():
+        if t.placements != gstate[k].placements \
+                or not torch.equal(t.to_local(), gstate[k].to_local()):
+            differ.append(f"optimizer state {k}")
+    out.update(
+        eager_mets=[[float(v) for v in m] for m in eager],
+        graph_mets=[[float(v) for v in m] for m in graphed],
+        differ=differ, n_params=len(list(gparams.parameters())),
+        n_state=len(gstate), capture_ms=graph.capture_ms,
+        pool_bytes=graph.pool_bytes,
+        replay_launches={k.name: n for k, n in graph.launches.items()},
+        params=gparams)
+    return out
 
 
 def pod_compiled(out: dict) -> None:
@@ -3518,10 +3710,11 @@ def phase_pod(counters: dict, smi: str) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.configs.base import get_shape
     from repro_torch.launch.mesh import host_mesh
+    from repro_torch.models.model import Model
     from repro_torch.parallel.param_sharding import shardings_of
     from repro_torch.parallel.sharding import make_rules
-    from repro_torch.parallel.tp import record_routes
     from repro_torch.train import compress as C
+    from repro_torch.train.step import make_train_step
     t0 = time.perf_counter()
     # DTensor's advice to flatten the mesh, once a redistribute: the (1, 1)
     # mesh has nothing to flatten
@@ -3530,99 +3723,142 @@ def phase_pod(counters: dict, smi: str) -> dict:
     pub = get_config("qwen2-7b")
     cfg = dataclasses.replace(pub, n_layers=POD_LAYERS)
     plan = cfg.plan.replace(**OFFLOAD, fused_grad_reduce=True)
-    batch = train_batches(cfg, get_shape(TRAIN_SHAPE), 1)[0]
+    batches = train_batches(cfg, get_shape(TRAIN_SHAPE), POD_GRAPH_STEPS)
+    model = Model(cfg, plan)
     # the kernels' forwards, in each microbatch and again in its remat
     # recompute; the backwards are the plain versions
     want = POD_LAYERS * plan.microbatches * (2 if plan.remat == "full" else 1)
     out: dict = {"layers": POD_LAYERS, "of": pub.n_layers}
-    for k in counters.values():
-        k.launches = 0
-    t1 = time.perf_counter()
-    params, loss0, gnorm0 = pod_step(cfg, plan, batch)
-    t_plain = time.perf_counter() - t1
-    out["plain_launches"] = {name: k.launches for name, k in counters.items()}
-    del params
-    with host_mesh() as dm:
-        rules = make_rules(cfg, dm, plan)
+    with deterministic():
         for k in counters.values():
             k.launches = 0
         t1 = time.perf_counter()
-        with record_routes() as routes:
-            params, loss1, gnorm1 = pod_step(cfg, plan, batch, rules)
-        out["step_s"] = (t_plain, time.perf_counter() - t1)
-        out["routes"] = dict(routes)
-        if set(routes) != POD_KINDS or set(routes.values()) != {"tp"}:
-            raise RuntimeError(f"pod: the rules step ran the routes "
-                               f"{routes}, want the tensor-parallel regions "
-                               f"for {sorted(POD_KINDS)}")
-        out["launches"] = {name: k.launches for name, k in counters.items()}
-        gaps = [abs(loss1 - loss0) / abs(loss0),
-                abs(gnorm1 - gnorm0) / abs(gnorm0)]
-        out.update(loss=(loss0, loss1), grad_norm=(gnorm0, gnorm1),
-                   gaps=gaps)
-        log(f"[pod] (a) qwen2-7b, layers {POD_LAYERS} of {pub.n_layers}, "
-            f"{TRAIN_SHAPE}, offload plan, fused_grad_reduce, one AdamW "
-            f"step: without rules loss {loss0!r}, grad norm {gnorm0!r}; "
-            f"with rules on the {tuple(dm.shape)} host mesh "
-            f"({dist.get_backend()}) loss {loss1!r}, grad norm {gnorm1!r}"
-            + ("; bit for bit" if gaps == [0.0, 0.0] else
-               f"; relative gaps {gaps[0]:.3e}, {gaps[1]:.3e} (limit 2^-8)")
-            + f"; launches in the rules step {json.dumps(out['launches'])}"
-            f" (want {want} each of flash_attention and swiglu: "
-            f"{POD_LAYERS} layers x {plan.microbatches} microbatches x "
-            f"forward and remat recompute); routes {json.dumps(routes)}; "
-            f"in the step without rules "
-            f"{json.dumps(out['plain_launches'])}; steps (init, step and "
-            f"loss read) {out['step_s'][0]:.2f} s without rules, "
-            f"{out['step_s'][1]:.2f} s with (mesh made after the first)")
-        if max(gaps) > POD_REL:
-            raise RuntimeError(f"pod: the rules step is {gaps} from the "
-                               f"step without rules (limit 2^-8)")
-        short = {k: (out["launches"][k], out["plain_launches"][k])
-                 for k in ("flash_attention", "swiglu")
-                 if (out["launches"][k], out["plain_launches"][k])
-                 != (want, want)}
-        if short:
-            raise RuntimeError(f"pod: launches (rules step, step without "
-                               f"rules) {short}, want {want} each")
+        params, opt = pod_state(model)
+        _, _, met = make_train_step(model)(params, opt, batches[0])
+        loss0, gnorm0 = float(met["loss"]), float(met["grad_norm"])
+        t_plain = time.perf_counter() - t1
+        out["plain_launches"] = {name: k.launches
+                                 for name, k in counters.items()}
+        del params, opt, met
+        torch.cuda.empty_cache()
+        with host_mesh() as dm:
+            rules = make_rules(cfg, dm, plan)
+            for k in counters.values():
+                k.launches = 0
+            rs = pod_rules_steps(model, rules, batches, counters)
+            params = rs.pop("params")
+            out["rules_graph"] = rs
+            routes = rs["routes"]
+            out["routes"] = routes
+            out["launches"] = {name: k.launches
+                               for name, k in counters.items()}
+            loss1, gnorm1 = rs["eager_mets"][0]
+            gaps = [abs(loss1 - loss0) / abs(loss0),
+                    abs(gnorm1 - gnorm0) / abs(gnorm0)]
+            out.update(loss=(loss0, loss1), grad_norm=(gnorm0, gnorm1),
+                       gaps=gaps, plain_s=t_plain)
+            log(f"[pod] (a) qwen2-7b, layers {POD_LAYERS} of "
+                f"{pub.n_layers}, {TRAIN_SHAPE}, offload plan, "
+                f"fused_grad_reduce, AdamW, deterministic algorithms: "
+                f"without rules loss {loss0!r}, grad norm {gnorm0!r}; "
+                f"with rules on the {tuple(dm.shape)} host mesh "
+                f"({dist.get_backend()}) loss {loss1!r}, grad norm "
+                f"{gnorm1!r}"
+                + ("; bit for bit" if gaps == [0.0, 0.0] else
+                   f"; relative gaps {gaps[0]:.3e}, {gaps[1]:.3e} (limit "
+                   f"2^-8)")
+                + f"; launches in the first rules step "
+                f"{json.dumps(rs['launches'])} (want {want} each of "
+                f"flash_attention and swiglu: {POD_LAYERS} layers x "
+                f"{plan.microbatches} microbatches x forward and remat "
+                f"recompute); routes {json.dumps(routes)}; in the step "
+                f"without rules {json.dumps(out['plain_launches'])}; the "
+                f"step without rules (init, step and loss read) "
+                f"{t_plain:.2f} s")
+            log(f"[pod] (a) the rules step as a graph, "
+                f"TrainGraph(model, rules): {POD_GRAPH_STEPS} eager rules "
+                f"steps against {POD_GRAPH_STEPS} graph steps (the first "
+                f"eager with the capture, then replays) from one seed: "
+                + ("loss, grad norm, every parameter "
+                   f"({rs['n_params']}) and optimizer-state ({rs['n_state']})"
+                   f" shard bit for bit" if not rs["differ"] else
+                   "differ in " + ", ".join(rs["differ"]))
+                + "; losses " + ", ".join(f"{m[0]!r}"
+                                          for m in rs["graph_mets"])
+                + f"; launches an eager step {json.dumps(rs['launches'])}, "
+                f"a replay {json.dumps(rs['replay_launches'])}; "
+                f"collectives an eager rules step issues "
+                f"{json.dumps(rs['eager_comm'])}, the graph's first call "
+                f"(its eager step, the communicators made and the capture) "
+                f"{json.dumps(rs['graph_comm'])} (a redistribute over a "
+                f"one-rank mesh dim issues none); capture "
+                f"{rs['capture_ms']:.1f} ms, private pool "
+                f"{rs['pool_bytes']} B; eager steps "
+                f"{rs['eager_s'] / POD_GRAPH_STEPS:.3f} s each (with the "
+                f"state's init), the graph's first call "
+                f"{rs['first_s']:.3f} s, a replay {rs['replay_s']:.3f} s")
+            if set(routes) != POD_KINDS or set(routes.values()) != {"tp"}:
+                raise RuntimeError(f"pod: the rules step ran the routes "
+                                   f"{routes}, want the tensor-parallel "
+                                   f"regions for {sorted(POD_KINDS)}")
+            if max(gaps) > POD_REL:
+                raise RuntimeError(f"pod: the rules step is {gaps} from the "
+                                   f"step without rules (limit 2^-8)")
+            short = {k: (rs["launches"][k], out["plain_launches"][k])
+                     for k in ("flash_attention", "swiglu")
+                     if (rs["launches"][k], out["plain_launches"][k])
+                     != (want, want)}
+            if short:
+                raise RuntimeError(f"pod: launches (rules step, step "
+                                   f"without rules) {short}, want {want} "
+                                   f"each")
+            if rs["differ"]:
+                raise RuntimeError(f"pod: the rules graph's steps differ "
+                                   f"from the eager rules steps in "
+                                   f"{rs['differ'][:20]}")
+            if rs["replay_launches"] != {k: n for k, n in
+                                         rs["launches"].items() if n}:
+                raise RuntimeError(f"pod: a replay launches "
+                                   f"{rs['replay_launches']}, an eager "
+                                   f"rules step {rs['launches']}")
 
-        gen = torch.Generator(device="cuda").manual_seed(1)
-        x = torch.randn((1 << 20,), generator=gen, device="cuda") * 5
-        y = C.compressed_psum(x)
-        step = float(C.quantize(x)[1].max()) * 0.5
-        err = float((y - x).abs().max())
-        out["psum"] = {"err": err, "half_step": step}
-        log(f"[pod] (b) compressed_psum of 2^20 f32 on the card over the "
-            f"one-rank group: max |y - x| {err:.3e} (limit half a "
-            f"quantization step, {step:.3e})")
-        if not err <= step + 1e-5:
-            raise RuntimeError(f"pod: compressed_psum off by {err}")
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            x = torch.randn((1 << 20,), generator=gen, device="cuda") * 5
+            y = C.compressed_psum(x)
+            step = float(C.quantize(x)[1].max()) * 0.5
+            err = float((y - x).abs().max())
+            out["psum"] = {"err": err, "half_step": step}
+            log(f"[pod] (b) compressed_psum of 2^20 f32 on the card over the "
+                f"one-rank group: max |y - x| {err:.3e} (limit half a "
+                f"quantization step, {step:.3e})")
+            if not err <= step + 1e-5:
+                raise RuntimeError(f"pod: compressed_psum off by {err}")
 
-        root = Path(__file__).resolve().parent / "artifacts" / "pod_ckpt"
-        shutil.rmtree(root, ignore_errors=True)
-        # layer 0's attention and norms: every kind of leaf the step
-        # holds, at a ninth of the layer's bytes (its MLP is 0.81 GB)
-        tree = {"p": {n: p for n, p in params.state_dict().items()
-                      if n.startswith("layers.0.") and ".mlp." not in n}}
-        nbytes = sum(t.to_local().numel() * t.to_local().element_size()
-                     for t in tree["p"].values())
-        t1 = time.perf_counter()
-        ckpt.save(root, 1, tree)
-        back, _ = ckpt.restore(root, 1, tree, shardings=shardings_of(tree))
-        same = all(
-            back["p"][n].placements == t.placements
-            and torch.equal(back["p"][n].to_local(), t.to_local())
-            for n, t in tree["p"].items())
-        out["ckpt"] = {"bytes": nbytes, "s": time.perf_counter() - t1}
-        log(f"[pod] (c) checkpoint of layer 0's {len(tree['p'])} DTensor "
-            f"attention and norm parameters ({nbytes / 1e9:.3f} GB): saved "
-            f"and restored onto "
-            f"the mesh's placements in {out['ckpt']['s']:.2f} s, "
-            + ("bit for bit" if same else "DIFFERENT"))
-        if not same:
-            raise RuntimeError("pod: the restored parameters differ")
-        del params, tree, back
-        shutil.rmtree(root, ignore_errors=True)
+            root = Path(__file__).resolve().parent / "artifacts" / "pod_ckpt"
+            shutil.rmtree(root, ignore_errors=True)
+            # layer 0's attention and norms: every kind of leaf the step
+            # holds, at a ninth of the layer's bytes (its MLP is 0.81 GB)
+            tree = {"p": {n: p for n, p in params.state_dict().items()
+                          if n.startswith("layers.0.") and ".mlp." not in n}}
+            nbytes = sum(t.to_local().numel() * t.to_local().element_size()
+                         for t in tree["p"].values())
+            t1 = time.perf_counter()
+            ckpt.save(root, 1, tree)
+            back, _ = ckpt.restore(root, 1, tree, shardings=shardings_of(tree))
+            same = all(
+                back["p"][n].placements == t.placements
+                and torch.equal(back["p"][n].to_local(), t.to_local())
+                for n, t in tree["p"].items())
+            out["ckpt"] = {"bytes": nbytes, "s": time.perf_counter() - t1}
+            log(f"[pod] (c) checkpoint of layer 0's {len(tree['p'])} "
+                f"DTensor attention and norm parameters "
+                f"({nbytes / 1e9:.3f} GB): saved and restored onto the "
+                f"mesh's placements in {out['ckpt']['s']:.2f} s, "
+                + ("bit for bit" if same else "DIFFERENT"))
+            if not same:
+                raise RuntimeError("pod: the restored parameters differ")
+            del params, tree, back
+            shutil.rmtree(root, ignore_errors=True)
     torch.cuda.empty_cache()
     host: dict = {}
     pod_compiled(host)
@@ -3756,6 +3992,7 @@ def main() -> int:
     pod = phase_pod(counters, card["smi"])
     for name, n in pod["launches"].items():
         launches[name] += n
+    mark("pod")
     log("kernels " + json.dumps(launches))
     log(f"[done] {time.perf_counter() - t_start:.1f} s (hold {RUN_HOLD_S:.0f}"
         f" s)")

@@ -268,20 +268,23 @@ class MeasuredBackend:
 
     The plan runs on ``mesh`` (a ``DeviceMesh``; ``None`` is one card, the
     same computation as ``launch.mesh.make_host_mesh()``'s ``(1, 1)``
-    mesh, where every rule resolves to replicated): prefill and decode
-    under ``parallel.sharding.make_rules`` for it.  A context whose
-    ``n_chips`` or ``tp`` exceeds the mesh raises (``check_context_fits``).
-    A train trial runs the step without rules, on plain tensors: on the
-    one card's mesh every placement is replicated, the same computation.
+    mesh, where every rule resolves to replicated): every kind under
+    ``parallel.sharding.make_rules`` for it.  A context whose ``n_chips``
+    or ``tp`` exceeds the mesh raises (``check_context_fits``).
 
     The plan's ``Model`` runs the shape's kind: prefill runs
-    ``Model.prefill`` on the shape's batch; decode runs ``decode_steps``
-    steps from a cache whose first ``seq_len - decode_steps`` positions
-    hold seeded random values (a step's cost does not depend on them);
-    train runs whole train steps (loss, backward, the arch's optimizer) on
-    seeded random tokens through ``train.step.TrainGraph``: on ``cuda``
-    the warm-up call is the eager step and the step's capture as a CUDA
-    graph, and each timed call a replay.  Parameters
+    ``Model.prefill`` on the shape's batch, eagerly (one forward a call);
+    decode runs ``decode_steps`` steps a call from a cache whose first
+    ``seq_len - decode_steps`` positions hold seeded random values (a
+    step's cost does not depend on them), through ``DecodeTrial``: on
+    ``cuda`` the step captured as ``ServeLoop`` captures it
+    (``serve.engine.DecodeGraph``) at the warm-up call and replayed; train
+    runs whole train steps (loss, backward, the arch's optimizer) on
+    seeded random tokens through ``train.step.TrainGraph(model, rules)``,
+    on parameters and optimizer state laid out on the mesh
+    (``parallel.param_sharding.distribute``): on ``cuda`` the warm-up call
+    is the eager step and the step's capture as a CUDA graph, and each
+    timed call a replay.  Parameters
     come from one seeded generator per architecture, shared across plans
     (a plan changes no parameter); ``params`` may hold loaded ones, by
     arch name.  A train trial makes its own parameters and optimizer state
@@ -298,14 +301,17 @@ class MeasuredBackend:
     The trace is the window's with its time axis divided by the calls, so
     it integrates to ``energy_j`` and keeps the measured watts; its meta
     holds the window, the counter's own difference beside the integral
-    (``counter``), and each kernel's launches during the trial
-    (``launches``).
+    (``counter``), each kernel's launches during the trial (``launches``,
+    a graph's replays included) and the trial's captured graph
+    (``graph``: its capture ms and pool bytes; None for an eager trial).
 
-    Only ``torch.cuda.OutOfMemoryError`` and the paper's timeout (checked
-    between calls: a CUDA call cannot be stopped) become penalties; after
-    one the cache is emptied and the device's memory must be back at its
-    level before the trial.  Every other exception propagates: a kernel
-    that fails to build or launch must never lose the search quietly.
+    Only ``torch.cuda.OutOfMemoryError`` (in a capture too) and the
+    paper's timeout (checked between calls: a CUDA call cannot be
+    stopped) become penalties; after one the trial and its graph are
+    dropped, the cache is emptied and the device's memory must be back at
+    its level before the trial.  Every other exception propagates: a
+    kernel that fails to build or launch, or a capture that fails, must
+    never lose the search quietly.
     """
 
     name = "measured"
@@ -338,23 +344,26 @@ class MeasuredBackend:
             self.source = NvmlSource(dev)
         return self.source
 
-    def _trial(self, model, params, shape: ShapeSpec,
-               dev: torch.device, rules=None) -> Callable[[], torch.Tensor]:
-        """One call of the shape's kind, waiting for the device; it
-        returns a copy of the last position's logits (the model's are a
-        view that would keep all positions' logits alive)."""
+    def make_trial(self, model, params, shape: ShapeSpec,
+                   dev: torch.device,
+                   rules=None) -> Callable[[], torch.Tensor]:
+        """The trial ``measure`` times: each call is one call of the
+        shape's kind, waiting for the device; it returns a copy of the
+        last position's logits (the model's are a view that would keep
+        all positions' logits alive).  A decode trial is a
+        ``DecodeTrial``, a train trial a ``TrainTrial``."""
         cfg = model.cfg
         rng = np.random.default_rng(self.seed)
         sync = (lambda: torch.cuda.synchronize(dev)) \
             if dev.type == "cuda" else (lambda: None)
         b, s = shape.global_batch, shape.seq_len
-        kw = {} if rules is None else {"rules": rules}
         if shape.kind == "train":
-            return self._train_trial(model, shape, dev, rng, sync)
+            return TrainTrial(model, shape, self.seed, rng, sync, rules)
         cache = model.init_cache(b, s)
         if shape.kind == "prefill":
             toks = torch.from_numpy(rng.integers(
                 0, cfg.vocab_size, (b, s)).astype(np.int32)).to(dev)
+            kw = {} if rules is None else {"rules": rules}
 
             def call() -> torch.Tensor:
                 logits, _ = model.prefill(params, {"tokens": toks}, cache,
@@ -371,42 +380,7 @@ class MeasuredBackend:
         _fill_cache(cache, s0, gen)
         toks = torch.from_numpy(rng.integers(
             0, cfg.vocab_size, (b, n)).astype(np.int32)).to(dev)
-
-        def call() -> torch.Tensor:
-            for i in range(n):
-                logits, _ = model.decode_step(
-                    params, {"tokens": toks[:, i:i + 1], "pos": s0 + i},
-                    cache, **kw)
-            logits = logits.clone()
-            sync()
-            return logits
-        return call
-
-    def _train_trial(self, model, shape: ShapeSpec, dev: torch.device,
-                     rng: np.random.Generator,
-                     sync) -> Callable[[], torch.Tensor]:
-        """One call is one train step on the trial's own parameters and
-        optimizer state (made from ``seed``); it returns the step's loss.
-        The step is a ``TrainGraph``: its first call captures it on
-        ``cuda``, the later calls replay it."""
-        from repro_torch.train.step import TrainGraph, make_opt_init
-        cfg = model.cfg
-        gen = torch.Generator(device=dev).manual_seed(self.seed)
-        state = {"params": model.init(gen)}
-        state["opt"] = make_opt_init(model)(state["params"])
-        step = TrainGraph(model)
-        toks = torch.from_numpy(rng.integers(
-            0, cfg.vocab_size, (shape.global_batch, shape.seq_len + 1))
-            .astype(np.int32)).to(dev)
-        batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
-
-        def call() -> torch.Tensor:
-            state["params"], state["opt"], metrics = step(
-                state["params"], state["opt"], batch)
-            loss = metrics["loss"].reshape(1).clone()
-            sync()
-            return loss
-        return call
+        return DecodeTrial(model, params, cache, toks, s0, sync, rules)
 
     def measure(self, ctx: MeasureContext,
                 plan: PlanConfig) -> Measurement:
@@ -419,7 +393,7 @@ class MeasuredBackend:
         model = Model(cfg, plan, dev)
         rules = None if self.mesh is None else make_rules(cfg, self.mesh,
                                                           plan)
-        # a train trial makes its own weights (_train_trial)
+        # a train trial makes its own weights (TrainTrial)
         params = self.weights(model) if shape.kind != "train" else None
         source = self.power_source(dev)
         if dev.type == "cuda":
@@ -441,7 +415,7 @@ class MeasuredBackend:
         def call() -> None:
             last[:] = [trial()]
         try:
-            trial = self._trial(model, params, shape, dev, rules)
+            trial = self.make_trial(model, params, shape, dev, rules)
             call()                                  # warm-up
             check(0.0)
             win = sample_window(source, call, seconds=self.window_s,
@@ -452,6 +426,7 @@ class MeasuredBackend:
         except TrialTimeout as e:
             error = str(e)
         if error is not None:
+            # the trial holds its graph and the graph its private pool
             trial = last = None
             gc.collect()
             if dev.type == "cuda":
@@ -473,6 +448,9 @@ class MeasuredBackend:
             raise RuntimeError(f"plan {plan_tag(plan)} gave non-finite "
                                f"{what} on {ctx.cfg.name} {ctx.shape_name}")
         self.outputs[plan_tag(plan)] = logits
+        graph = getattr(trial, "graph", None)
+        graph = None if graph is None or graph.capture_ms is None else {
+            "capture_ms": graph.capture_ms, "pool_bytes": graph.pool_bytes}
         trace = _per_call_trace(win.trace, win.calls)
         trace.meta.update({
             "source": self.name, "arch": ctx.cfg.name,
@@ -480,7 +458,7 @@ class MeasuredBackend:
             "device": str(dev), "calls": win.calls,
             "call_seconds": win.call_seconds, "window_s": win.seconds,
             "window_j": win.joules, "counter": win.counter,
-            "launches": launches,
+            "launches": launches, "graph": graph,
             "power_source": getattr(source, "name", type(source).__name__),
             "power_limit_w": getattr(source, "power_limit_w", None)})
         est = estimate_program(ctx.cfg, shape, plan, ctx.n_chips, ctx.tp)
@@ -498,7 +476,10 @@ class MeasuredBackend:
                   + f" s), median {m.seconds:.4f} s, "
                   f"{m.watts:.2f} W, {m.energy_j:.3f} J a call"
                   f"{describe_window(win.counter)}; "
-                  f"launches {launches}")
+                  f"launches {launches}"
+                  + ("" if graph is None else
+                     f"; captured in {graph['capture_ms']:.1f} ms, pool "
+                     f"{graph['pool_bytes']} B"))
         if self.record_dir is not None:
             trace.to_jsonl(Path(self.record_dir) / (
                 f"{ctx.cfg.name}__{ctx.shape_name}__card_p"
@@ -508,6 +489,99 @@ class MeasuredBackend:
     def _log(self, msg: str) -> None:
         if self.log is not None:
             self.log(msg)
+
+
+class DecodeTrial:
+    """The measured rung's decode trial: ``toks.shape[1]`` decode steps a
+    call from ``cache`` (its first ``s0`` positions held), step ``i`` at
+    position ``s0 + i`` on token column ``i``, the cache written in place.
+
+    The inputs go through static buffers, as ``ServeLoop``'s: ``tokens``
+    (b, 1) and a 0-d ``pos``.  On ``cuda`` the first call captures the
+    step under ``rules`` as ``serve.engine.DecodeGraph`` (``graph``), and
+    every call copies each token column into ``tokens``, fills ``pos`` and
+    replays; on the CPU the same buffers go through the eager step.  A
+    call waits for the device (``sync``) and returns a clone of the last
+    step's logits.  ``eager()`` is one call through the eager step on the
+    card too, which a replayed call is held to."""
+
+    def __init__(self, model, params, cache: list, toks: torch.Tensor,
+                 s0: int, sync: Callable[[], None], rules=None):
+        from repro_torch.serve.engine import make_decode_step
+        self.model, self.params, self.cache = model, params, cache
+        self.toks, self.s0, self.sync, self.rules = toks, s0, sync, rules
+        dev = toks.device
+        self.tokens = torch.zeros((toks.shape[0], 1), dtype=torch.int32,
+                                  device=dev)
+        self.pos = torch.zeros((), dtype=torch.int32, device=dev)
+        self.step = make_decode_step(model, rules)
+        self.graph = None
+
+    def _eager_step(self) -> torch.Tensor:
+        with torch.no_grad():
+            return self.step(self.params, {"tokens": self.tokens,
+                                           "pos": self.pos}, self.cache)[0]
+
+    def _run(self, step: Callable[[], torch.Tensor]) -> torch.Tensor:
+        for i in range(self.toks.shape[1]):
+            self.tokens.copy_(self.toks[:, i:i + 1])
+            self.pos.fill_(self.s0 + i)
+            logits = step()
+        logits = logits.clone()
+        self.sync()
+        return logits
+
+    def __call__(self) -> torch.Tensor:
+        if self.toks.device.type != "cuda":
+            return self._run(self._eager_step)
+        if self.graph is None:
+            from repro_torch.serve.engine import DecodeGraph
+            self.graph = DecodeGraph(self.model, self.params, self.cache,
+                                     self.tokens, self.pos, self.rules)
+        return self._run(self.graph.replay)
+
+    def eager(self) -> torch.Tensor:
+        return self._run(self._eager_step)
+
+
+class TrainTrial:
+    """The measured rung's train trial: one call is one train step of
+    ``model`` on the trial's own parameters and optimizer state, made from
+    ``seed`` and, under ``rules``, laid out on ``rules.mesh``
+    (``parallel.param_sharding.distribute``), on seeded random tokens of
+    the shape's batch.  The step is ``train.step.TrainGraph(model,
+    rules)`` (``graph``): its first call captures it on ``cuda``, the
+    later calls replay it.  A call waits for the device and returns the
+    step's loss (a ``DTensor``'s read whole)."""
+
+    def __init__(self, model, shape: ShapeSpec, seed: int,
+                 rng: np.random.Generator, sync: Callable[[], None],
+                 rules=None):
+        from repro_torch.train.step import TrainGraph, make_opt_init
+        dev = model.device
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        params = model.init(gen)
+        opt = make_opt_init(model)(params)
+        if rules is not None:
+            from repro_torch.parallel.param_sharding import distribute
+            params, opt, _ = distribute(rules, params, opt)
+        self.params, self.opt, self.sync = params, opt, sync
+        self.graph = TrainGraph(model, rules)
+        toks = torch.from_numpy(rng.integers(
+            0, model.cfg.vocab_size, (shape.global_batch, shape.seq_len + 1))
+            .astype(np.int32)).to(dev)
+        self.batch = {"tokens": toks[:, :-1], "targets": toks[:, 1:]}
+
+    def __call__(self) -> torch.Tensor:
+        from repro_torch.parallel.sharding import is_dtensor
+        self.params, self.opt, metrics = self.graph(self.params, self.opt,
+                                                    self.batch)
+        loss = metrics["loss"]
+        if is_dtensor(loss):
+            loss = loss.full_tensor()
+        loss = loss.reshape(1).clone()
+        self.sync()
+        return loss
 
 
 def plan_kernels(plan: PlanConfig, genes) -> list[str]:

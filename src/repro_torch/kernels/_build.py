@@ -69,19 +69,32 @@ def add_launches(recorded: dict) -> None:
         k.launches += n
 
 
-def capture_graph(fn, dev: torch.device) -> tuple:
+def capture_graph(fn, dev: torch.device, mesh=None) -> tuple:
     """``fn()`` captured once as a CUDA graph on ``dev``, after the caller
     has run it eagerly (which builds and loads every kernel library and
     sets its attributes outside the capture).  Returns ``(graph, fn's
     output, the launches it recorded, the capture's ms, the bytes its
     private pool took)``.  The capture empties the allocator's cache as it
     begins; it is emptied first, so that what is reserved after it is the
-    pool's growth."""
+    pool's growth.
+
+    ``mesh`` (a ``DeviceMesh`` whose groups ``fn`` may reduce over): each
+    group's communicator is made first (``launch.mesh.init_communicators``)
+    and the capture runs in CUDA's thread-local error mode, so that what
+    another thread calls meanwhile (the process group's watchdog queries
+    its collectives' events) cannot invalidate it; a call that is not
+    allowed while capturing still fails when this thread makes it."""
+    mode = "global"
+    if mesh is not None:
+        from repro_torch.launch.mesh import init_communicators
+        init_communicators(mesh)
+        mode = "thread_local"
     torch.cuda.empty_cache()
     reserved = torch.cuda.memory_reserved(dev)
     t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
-    with recorded_launches() as launches, torch.cuda.graph(graph):
+    with recorded_launches() as launches, \
+            torch.cuda.graph(graph, capture_error_mode=mode):
         out = fn()
     torch.cuda.synchronize(dev)
     return (graph, out, launches, (time.perf_counter() - t0) * 1e3,

@@ -12,6 +12,8 @@ creates a one-rank group of its own (NCCL on ``cuda``, gloo on the CPU,
 over an in-process store: no rendezvous, no network) and lays a ``(1, 1)``
 mesh over it, on which every sharding rule resolves to replicated.
 ``destroy_host_mesh`` tears down the group ``make_host_mesh`` created.
+``init_communicators`` makes each of a mesh's groups' communicators
+before a CUDA graph's capture, which cannot make one.
 """
 from __future__ import annotations
 
@@ -90,6 +92,22 @@ def destroy_host_mesh() -> None:
         _OWN_GROUP["created"] = False
         if dist.is_initialized():
             dist.destroy_process_group()
+
+
+def init_communicators(mesh) -> None:
+    """One ``all_reduce`` of a 0-d tensor on each process group of
+    ``mesh``, on the current stream, waited for: NCCL makes a group's
+    communicator at its first collective, which must not fall inside a
+    CUDA graph's capture."""
+    import torch
+    import torch.distributed as dist
+    dev = torch.device(mesh.device_type)
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    for group in mesh.get_all_groups():
+        dist.all_reduce(torch.zeros((), device=dev), group=group)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
 
 
 @contextlib.contextmanager

@@ -64,8 +64,9 @@ def make_decode_step(model: Model, rules=None):
 
 
 class DecodeGraph:
-    """``make_decode_step(model)`` captured once as a CUDA graph: the
-    port's counterpart of the reference's ``jax.jit`` of its decode step.
+    """``make_decode_step(model, rules)`` captured once as a CUDA graph:
+    the port's counterpart of the reference's ``jax.jit`` of its decode
+    step.
 
     The step reads ``tokens`` (slots, 1) and the 0-d ``pos`` and writes
     ``cache`` in place; ``replay()`` runs it on whatever those buffers
@@ -76,6 +77,11 @@ class DecodeGraph:
     attributes outside the capture.  A capture or a replay that fails
     raises.
 
+    Under ``rules`` (``parallel.sharding.ShardingRules``; the parameters
+    and the cache may be ``DTensor``s on its mesh) the warm-up's copy of
+    the cache keeps each ``DTensor``'s placements, and the capture makes
+    the mesh's communicators first (``kernels._build.capture_graph``).
+
     A replay makes no call to a kernel's Python launcher, so the graph
     counts the launches its capture recorded (``launches``, per
     ``CudaKernel``) and adds them to each kernel's count on every replay;
@@ -84,10 +90,11 @@ class DecodeGraph:
     ``pool_bytes`` the device memory the graph's private pool took."""
 
     def __init__(self, model: Model, params, cache: list,
-                 tokens: torch.Tensor, pos: torch.Tensor):
+                 tokens: torch.Tensor, pos: torch.Tensor, rules=None):
         dev = tokens.device
-        step = make_decode_step(model)
+        step = make_decode_step(model, rules)
         batch = {"tokens": tokens, "pos": pos}
+        # a DTensor's clone is a DTensor at the same placements
         warm = [{k: v.clone() for k, v in c.items()} for c in cache]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
@@ -101,7 +108,8 @@ class DecodeGraph:
         def logits():
             return step(params, batch, cache)[0]
         (self.graph, self.logits, self.launches, self.capture_ms,
-         self.pool_bytes) = capture_graph(logits, dev)
+         self.pool_bytes) = capture_graph(
+            logits, dev, None if rules is None else rules.mesh)
 
     def replay(self) -> torch.Tensor:
         self.graph.replay()

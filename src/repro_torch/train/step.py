@@ -25,10 +25,12 @@ reference pins its gradients with ``with_sharding_constraint``.  On the
 one card's ``(1, 1)`` mesh every placement is ``Replicate()`` and a pin
 moves nothing.
 
-``TrainGraph(model)`` is the port's ``jax.jit(make_train_step(model),
-donate_argnums=(0, 1))``: the same call, the new optimizer state written
-into the tensors it was given, and on ``cuda`` the step captured once as a
-CUDA graph and replayed for every later call (its docstring).
+``TrainGraph(model, rules=None)`` is the port's
+``jax.jit(make_train_step(model, rules), donate_argnums=(0, 1))`` (with
+``in_shardings``/``out_shardings`` under rules): the same call, the new
+optimizer state written into the tensors it was given, and on ``cuda``
+the step captured once as a CUDA graph and replayed for every later call
+(its docstring).
 """
 from __future__ import annotations
 
@@ -185,23 +187,59 @@ def make_train_step(model: Model, rules=None):
     return train_step
 
 
+def pin_state(new: dict, like: dict) -> dict:
+    """``pin`` over nested dicts: each tensor of ``new`` at the placements
+    of the tensor at the same place of ``like``.  ``make_train_step(model,
+    rules)`` returns int8 Adam's blocks at the placements their reshapes
+    give (``_StridedShard``), where the next step's view of them fails
+    torch's sharding propagation (torch 2.13); laid back at the given
+    state's placements (the reference's ``out_shardings``) the state
+    carries to the next step."""
+    return {k: pin_state(v, like[k]) if isinstance(v, dict)
+            else pin(v, like[k]) for k, v in new.items()}
+
+
+def _layout(t) -> str:
+    from repro_torch.parallel.sharding import is_dtensor
+    if not is_dtensor(t):
+        return "a plain tensor"
+    return f"{tuple(t.placements)} on {t.device_mesh}"
+
+
 @torch.no_grad()
 def donate(state: dict, new: dict) -> dict:
     """Write each tensor of ``new`` into the tensor at the same place of
     ``state`` (nested dicts of one structure) where they are not the same
     tensor, and return ``state``: the reference's donated buffers, whose
-    storage the next step's state reuses."""
+    storage the next step's state reuses.  A ``DTensor`` is written shard
+    into shard; one that comes back on another mesh or at other placements
+    (or as a plain tensor) raises: the state is never reallocated."""
+    from repro_torch.parallel.sharding import is_dtensor
     for k, v in new.items():
         if isinstance(v, dict):
             donate(state[k], v)
-        elif v is not state[k]:
-            state[k].copy_(v)
+            continue
+        dst = state[k]
+        if v is dst:
+            continue
+        if is_dtensor(v) or is_dtensor(dst):
+            if not (is_dtensor(v) and is_dtensor(dst)) \
+                    or v.device_mesh != dst.device_mesh \
+                    or tuple(v.placements) != tuple(dst.placements):
+                raise ValueError(
+                    f"donate: state {k!r} comes back as {_layout(v)}, the "
+                    f"given tensor is {_layout(dst)}")
+            dst.to_local().copy_(v.to_local())
+        else:
+            dst.copy_(v)
     return state
 
 
 class TrainGraph:
-    """``make_train_step(model)`` as the reference runs it,
-    ``jax.jit(make_train_step(model), donate_argnums=(0, 1))``: called as
+    """``make_train_step(model, rules)`` as the reference runs it,
+    ``jax.jit(make_train_step(model, rules), donate_argnums=(0, 1))``
+    (``src/repro/launch/train.py:47``; under rules with its shardings,
+    ``src/repro/launch/dryrun.py:266``): called as
     ``step(params, opt_state, batch) -> (params, opt_state, metrics)``.
 
     Donation: the step writes the parameters in place, as
@@ -236,17 +274,21 @@ class TrainGraph:
     On the CPU there is no capture: each call is the eager step and the
     write-back, with the same checks of the batch.
 
-    The step under ``rules`` (``DTensor`` parameters) is not captured:
-    ``rules`` raises, and ``make_train_step(model, rules)`` runs it
-    eagerly."""
+    Under ``rules`` the step is ``make_train_step(model, rules)`` on
+    ``DTensor`` parameters and state laid out on ``rules.mesh``
+    (``parallel.param_sharding.distribute``); the new state is laid out at
+    the given state's placements (``pin_state``: the reference's
+    ``out_shardings``) and donated shard into shard.  On ``cuda`` the
+    capture makes each of the mesh's communicators first
+    (``kernels._build.capture_graph``), and the graph holds the forward,
+    the backward, the gradient pins, the clip and the optimizer update.
+    On the CPU (gloo; the dry run's meta
+    tensors over a fake group) each call is the eager step."""
 
     def __init__(self, model: Model, rules=None):
-        if rules is not None:
-            raise NotImplementedError(
-                "TrainGraph does not capture the step under rules (DTensor "
-                "parameters): run make_train_step(model, rules) eagerly")
         self.model = model
-        self.step = make_train_step(model)
+        self.rules = rules
+        self.step = make_train_step(model, rules)
         self.graph = None
         self.metrics = None
         self.capture_ms = None
@@ -259,6 +301,8 @@ class TrainGraph:
 
     def _eager(self, params, opt_state, batch):
         params, new, metrics = self.step(params, opt_state, batch)
+        if self.rules is not None:
+            new = pin_state(new, opt_state)
         return params, donate(opt_state, new), metrics
 
     def __call__(self, params, opt_state, batch):
@@ -305,6 +349,7 @@ class TrainGraph:
         torch.cuda.synchronize(dev)
         (self.graph, self.metrics, self.launches, self.capture_ms,
          self.pool_bytes) = capture_graph(
-            lambda: self._eager(params, opt_state, static)[2], dev)
+            lambda: self._eager(params, opt_state, static)[2], dev,
+            None if self.rules is None else self.rules.mesh)
         self._static = static
         return out

@@ -1357,6 +1357,215 @@ def test_train_graph_counts_its_replayed_launches(cuda):
         == [len(batches) * eager[k] for k in kernels]
 
 
+# ---------------------------------------------------------------------------
+# The steps under rules as CUDA graphs, on the one-rank NCCL mesh
+# ---------------------------------------------------------------------------
+
+def _rules_model(**plan):
+    """Reduced qwen2-7b under the offload plan (and ``plan``'s fields) on
+    the card."""
+    cfg = get_config("qwen2-7b", reduced=True)
+    cfg = dataclasses.replace(cfg, plan=cfg.plan.replace(**OFFLOAD, **plan))
+    return Model(cfg, device="cuda")
+
+
+def _locals(cache):
+    return [{k: v.to_local().clone() for k, v in c.items()} for c in cache]
+
+
+def test_rules_decode_graph_replays_the_eager_rules_step(cuda):
+    """``DecodeGraph`` under rules, the parameters and the cache laid out
+    on the mesh: four replays against the eager rules step on a copy of
+    the cache, logits and every cache shard bit for bit; the warm-up left
+    the cache as it was."""
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.parallel.param_sharding import distribute
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.serve.engine import DecodeGraph, make_decode_step
+    model = _rules_model()
+    rng = np.random.default_rng(5)
+    with host_mesh() as dm:
+        rules = make_rules(model.cfg, dm, model.plan)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        params, _, cache = distribute(rules, params,
+                                      cache=model.init_cache(2, 16))
+        eager = [{k: v.clone() for k, v in c.items()} for c in cache]
+        tok = torch.zeros((2, 1), dtype=torch.int32, device="cuda")
+        pos = torch.zeros((), dtype=torch.int32, device="cuda")
+        before = _locals(cache)
+        graph = DecodeGraph(model, params, cache, tok, pos, rules)
+        for c, b in zip(_locals(cache), before):
+            assert all(torch.equal(c[k], b[k]) for k in c)
+        assert graph.pool_bytes > 0 and graph.launches
+        step = make_decode_step(model, rules)
+        for i in range(4):
+            tok.copy_(torch.from_numpy(rng.integers(
+                0, model.cfg.vocab_size, (2, 1)).astype(np.int32)))
+            pos.fill_(i)
+            got = graph.replay()
+            with torch.no_grad():
+                want = step(params, {"tokens": tok, "pos": pos}, eager)[0]
+            assert torch.equal(got.to_local(), want.to_local()), i
+            for c, e in zip(cache, eager):
+                for k in c:
+                    assert c[k].placements == e[k].placements, (i, k)
+                    assert torch.equal(c[k].to_local(), e[k].to_local()), \
+                        (i, k)
+
+
+def test_rules_train_graph_replays_the_eager_rules_step(cuda,
+                                                         deterministic):
+    """``TrainGraph(model, rules)`` on the one-rank NCCL mesh against
+    ``make_train_step(model, rules)`` (its state laid back at its
+    placements, ``pin_state``) over three steps from one seed: loss, grad
+    norm, every parameter and state shard bit for bit, the state keeping
+    its storage and placements, a replay launching what an eager step
+    launches."""
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.parallel.param_sharding import distribute
+    from repro_torch.parallel.sharding import make_rules
+    from repro_torch.train.step import (TrainGraph, make_opt_init,
+                                        make_train_step, pin_state)
+    model = _rules_model(fused_grad_reduce=True)
+    rng = np.random.default_rng(6)
+    batches = []
+    for _ in range(3):
+        t = torch.from_numpy(rng.integers(0, model.cfg.vocab_size, (2, 65))
+                             .astype(np.int32)).cuda()
+        batches.append({"tokens": t[:, :-1], "targets": t[:, 1:]})
+    kernels = (FA.KERNEL, SG.KERNEL)
+    with host_mesh() as dm:
+        rules = make_rules(model.cfg, dm, model.plan)
+
+        def state():
+            p = model.init(torch.Generator(device="cuda").manual_seed(0))
+            p, o, _ = distribute(rules, p, make_opt_init(model)(p))
+            return p, o
+        params, opt = state()
+        gparams, gopt = state()
+        ptrs = {k: t.to_local().data_ptr()
+                for k, t in _state_tensors(gopt).items()}
+        step, graph = make_train_step(model, rules), TrainGraph(model, rules)
+        eager_launches = None
+        for i, b in enumerate(batches):
+            n0 = [k.launches for k in kernels]
+            params, new, met = step(params, opt, b)
+            opt = pin_state(new, opt)
+            if eager_launches is None:
+                eager_launches = {k: k.launches - n
+                                  for k, n in zip(kernels, n0)}
+            gparams, gopt, gmet = graph(gparams, gopt, b)
+            for key in ("loss", "grad_norm"):
+                assert torch.equal(gmet[key].full_tensor(),
+                                   met[key].full_tensor()), (i, key)
+            want, got = _state_tensors(opt), _state_tensors(gopt)
+            for path, t in want.items():
+                assert got[path].placements == t.placements, (i, path)
+                assert torch.equal(got[path].to_local(), t.to_local()), \
+                    (i, path)
+            assert {k: t.to_local().data_ptr() for k, t in got.items()} \
+                == ptrs
+            for (n, p), q in zip(params.named_parameters(),
+                                 gparams.parameters()):
+                assert torch.equal(q.to_local(), p.to_local()), (i, n)
+        assert graph.graph is not None and graph.binds == 1
+        assert all(eager_launches.values())
+        assert {k: graph.launches.get(k, 0) for k in kernels} \
+            == eager_launches
+
+
+def test_measured_decode_trial_replays_its_eager_loop(cuda, monkeypatch):
+    """The measured rung's decode trial on the one-rank NCCL mesh: a
+    replayed call against an eager call from the same cache state, logits
+    and cache bit for bit; through the rung, the trial's graph is in the
+    trace's meta and its replays are in the launch counts."""
+    from repro_torch.configs import CARD_SHAPES, ShapeSpec
+    from repro_torch.core.backends import (DecodeTrial, MeasureContext,
+                                           MeasuredBackend, _fill_cache)
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.parallel.sharding import make_rules
+    monkeypatch.setitem(CARD_SHAPES, "card_test",
+                        ShapeSpec("card_test", 256, 2, "decode"))
+    for kv in ("bfloat16", "int8"):
+        model = _rules_model(kv_cache_dtype=kv)
+        with host_mesh() as dm:
+            rules = make_rules(model.cfg, dm, model.plan)
+            params = model.init(torch.Generator(device="cuda")
+                                .manual_seed(0))
+            cache = model.init_cache(2, 256)
+            _fill_cache(cache, 252, torch.Generator(device="cuda")
+                        .manual_seed(1))
+            toks = torch.from_numpy(np.random.default_rng(2).integers(
+                0, model.cfg.vocab_size, (2, 4)).astype(np.int32)).cuda()
+            trial = DecodeTrial(model, params, cache, toks, 252,
+                                torch.cuda.synchronize, rules)
+            trial()
+            assert trial.graph is not None
+            start = [{k: v.clone() for k, v in c.items()} for c in cache]
+            got = trial()
+            replayed = [{k: v.clone() for k, v in c.items()} for c in cache]
+            for c, s0 in zip(cache, start):
+                for k in c:
+                    c[k].copy_(s0[k])
+            want = trial.eager()
+            assert torch.equal(got, want), kv
+            for c, r in zip(cache, replayed):
+                assert all(torch.equal(c[k], r[k]) for k in c), kv
+
+            rung = MeasuredBackend(device=cuda, mesh=dm, decode_steps=4)
+            n0 = SG.KERNEL.launches
+            m = rung.measure(MeasureContext(model.cfg, "card_test"),
+                             model.plan)
+            assert m.ok and m.trace.meta["graph"]["capture_ms"] > 0, kv
+            calls = m.trace.meta["calls"] + 1
+            assert SG.KERNEL.launches - n0 == \
+                m.trace.meta["launches"]["swiglu"]
+            assert m.trace.meta["launches"]["swiglu"] == \
+                (4 * calls + 1) * model.cfg.n_layers, kv
+
+
+@pytest.mark.parametrize("kind", ["decode", "train"])
+def test_measured_rung_oom_in_a_capture_is_a_penalty(cuda, monkeypatch,
+                                                      kind):
+    """An OOM inside the capture of the trial's step (an allocation no
+    card holds, made only while capturing) is the paper's penalty: the
+    trial and its graph are dropped and the device's memory is back at
+    its level; the next trial runs."""
+    from repro_torch.configs import CARD_SHAPES, ShapeSpec
+    from repro_torch.core.backends import (MEMORY_SLACK, MeasureContext,
+                                           MeasuredBackend)
+    from repro_torch.launch.mesh import host_mesh
+    from repro_torch.serve import engine
+    from repro_torch.train import step as S
+    mod, name = (engine, "make_decode_step") if kind == "decode" \
+        else (S, "make_train_step")
+    real = getattr(mod, name)
+
+    def oom_in_capture(model, rules=None):
+        fn = real(model, rules)
+
+        def step(*args):
+            if torch.cuda.is_current_stream_capturing():
+                torch.empty(1 << 44, dtype=torch.uint8, device="cuda")
+            return fn(*args)
+        return step
+    shape = ShapeSpec("card_test", 256 if kind == "decode" else 64, 2, kind)
+    monkeypatch.setitem(CARD_SHAPES, "card_test", shape)
+    model = _rules_model()
+    with host_mesh() as dm:
+        rung = MeasuredBackend(device=cuda, mesh=dm, decode_steps=4)
+        ctx = MeasureContext(model.cfg, "card_test")
+        torch.cuda.synchronize()
+        level = torch.cuda.memory_allocated()
+        monkeypatch.setattr(mod, name, oom_in_capture)
+        m = rung.measure(ctx, model.plan)
+        assert not m.ok and m.error.startswith("OOM"), m.error
+        torch.cuda.empty_cache()
+        assert torch.cuda.memory_allocated() <= level + MEMORY_SLACK
+        monkeypatch.setattr(mod, name, real)
+        assert rung.measure(ctx, model.plan).ok
+
+
 def test_train_graph_refuses_a_host_sync_in_the_step(cuda, monkeypatch):
     """A step that reads a value back to the host (``.item()``) cannot be
     captured: the call raises after its eager step, and the next call on

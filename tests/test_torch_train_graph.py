@@ -26,8 +26,10 @@ Held here:
   package, which that test allows, and the next step's gradient norm then
   differs at 5e-5.  Their donation is held bit for bit against
   ``make_train_step``, itself held step by step to the reference there;
-* a batch of another shape raises, new state re-binds, ``rules`` is
-  refused, and the launch bookkeeping that the card's graphs share.
+* a batch of another shape raises, new state re-binds, the dry run's
+  meta-device rules step runs eagerly (never captured), and the launch
+  bookkeeping that the card's graphs share.  (Under rules on a real
+  mesh: ``test_torch_rules_graph.py``.)
 
 The card's side (capture, replays bit for bit against the eager step
 under deterministic algorithms, launches a replay adds, a host sync in the
@@ -233,9 +235,38 @@ def test_new_opt_state_rebinds():
 
 
 def test_rules_are_refused():
-    model, _, _ = _fresh("adamw", "none")
-    with pytest.raises(NotImplementedError, match="rules"):
-        TrainGraph(model, rules=object())
+    """The dry run's rules step is never captured: its model lies on the
+    CPU and its tensors on the meta device as ``DTensor``s over a fake
+    256-rank group, and it calls ``make_train_step(model, rules)``; a
+    ``TrainGraph(model, rules)`` given that state runs the eager step
+    (nothing is captured), donates into the given state and keeps its
+    placements.  (Rules on a real mesh: ``test_torch_rules_graph.py``.)"""
+    import torch.distributed as dist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+
+    from repro_torch.launch.dryrun import build_step
+    from repro_torch.launch.mesh import make_production_mesh
+    from repro_torch.parallel.sharding import make_rules
+    assert not dist.is_initialized()
+    dist.init_process_group("fake", store=FakeStore(), rank=0,
+                            world_size=256)
+    try:
+        mesh = make_production_mesh(device_type="cpu")
+        fn, (params, opt, batch), cfg, _ = build_step("tiny-test",
+                                                      "train_4k", mesh)
+        assert fn.__qualname__ == "make_train_step.<locals>.train_step"
+        model = Model(cfg, cfg.plan, "cpu")
+        graph = TrainGraph(model, make_rules(cfg, mesh, cfg.plan))
+        layout = {k: (t.placements, t.device.type)
+                  for k, t in _state_tensors(opt).items()}
+        out_p, out_o, met = graph(params, opt, batch)
+        assert out_p is params and out_o is opt
+        assert graph.graph is None and graph.capture_ms is None
+        assert met["loss"].device.type == "meta"
+        assert {k: (t.placements, t.device.type)
+                for k, t in _state_tensors(opt).items()} == layout
+    finally:
+        dist.destroy_process_group()
 
 
 def test_donate_writes_into_the_given_tensors():
