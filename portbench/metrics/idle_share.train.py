@@ -1,0 +1,10 @@
+"""idle_share.train (%): the window's wall time in which no train step ran
+on the card: 1 - (summed CUDA-event time of the steps) / window."""
+from portbench.stats import share
+
+
+def read(r):
+    ms = r.get("step_ms")
+    if not ms:
+        return None
+    return share(r["window_s"] - sum(ms) / 1e3, r["window_s"])
