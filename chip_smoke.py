@@ -2995,7 +2995,8 @@ def function_case(name: str, fn, plain, library, args, hold, work: tuple,
                            f"{GRAD_REL})")
     with torch.no_grad():
         ms = graph_ms(lambda: fn(*args), reps)
-    ops_bwd = cuda_ms(lambda: ops._plain_vjp(plain, args, cots), reps, 1)
+    ops_bwd = cuda_ms(lambda: ops._plain_vjp(name, plain, args, cots), reps,
+                      1)
     row = {"max_abs_err": err, "grad_bit_equal": equal, "grad_max_rel": rel,
            "ms": ms, "function_bwd_ms": ops_bwd,
            "plain_bwd_ms": timed_backward(plain, args, cots, reps),

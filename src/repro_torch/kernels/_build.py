@@ -26,6 +26,8 @@ from typing import Iterable, Optional
 
 import torch
 
+from repro_torch import obs
+
 CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "build"
 HEADERS = ("common.cuh", "mma.cuh")
@@ -74,9 +76,12 @@ def capture_graph(fn, dev: torch.device, mesh=None) -> tuple:
     has run it eagerly (which builds and loads every kernel library and
     sets its attributes outside the capture).  Returns ``(graph, fn's
     output, the launches it recorded, the capture's ms, the bytes its
-    private pool took)``.  The capture empties the allocator's cache as it
-    begins; it is emptied first, so that what is reserved after it is the
-    pool's growth.
+    private pool took, what it recorded for ``repro_torch.obs``)``: the
+    last an ``obs.Recorded`` of the counts and device ranges each replay
+    hands to ``obs.replaying``, or None where the capture recorded
+    neither (tracing off).  The capture empties the allocator's cache as
+    it begins; it is emptied first, so that what is reserved after it is
+    the pool's growth.
 
     ``mesh`` (a ``DeviceMesh`` whose groups ``fn`` may reduce over): each
     group's communicator is made first (``launch.mesh.init_communicators``)
@@ -93,12 +98,13 @@ def capture_graph(fn, dev: torch.device, mesh=None) -> tuple:
     reserved = torch.cuda.memory_reserved(dev)
     t0 = time.perf_counter()
     graph = torch.cuda.CUDAGraph()
-    with recorded_launches() as launches, \
+    with recorded_launches() as launches, obs.recorded() as rec, \
             torch.cuda.graph(graph, capture_error_mode=mode):
         out = fn()
     torch.cuda.synchronize(dev)
     return (graph, out, launches, (time.perf_counter() - t0) * 1e3,
-            torch.cuda.memory_reserved(dev) - reserved)
+            torch.cuda.memory_reserved(dev) - reserved,
+            rec if rec.counts or rec.ranges else None)
 
 
 def nvcc() -> str:

@@ -30,6 +30,7 @@ import math
 
 import torch
 
+from repro_torch import obs
 from repro_torch.device import same_device
 from repro_torch.parallel.sharding import is_dtensor, replicate
 from repro_torch.kernels import ref as _ref
@@ -77,16 +78,19 @@ def _on_dtensors(fn, n_out: int, *args):
                      device_mesh=mesh)(*args)
 
 
-def _plain_vjp(fn, saved, grads):
-    """The backward of a Function: ``fn`` (a plain version) re-run on
-    detached copies of the ``saved`` inputs under autograd, and its
-    gradients with respect to each input for the output cotangents
-    ``grads`` — the reference's ``jax.vjp`` of its oracle."""
-    xs = [t.detach().requires_grad_() for t in saved]
-    with torch.enable_grad():
-        out = fn(*xs)
-    out = out if isinstance(out, tuple) else (out,)
-    return torch.autograd.grad(out, xs, grads, allow_unused=True)
+def _plain_vjp(name: str, fn, saved, grads):
+    """The backward of the Function of kernel ``name``: ``fn`` (a plain
+    version) re-run on detached copies of the ``saved`` inputs under
+    autograd, and its gradients with respect to each input for the output
+    cotangents ``grads`` — the reference's ``jax.vjp`` of its oracle —
+    inside the device range ``<name>.backward``: every plain backward runs
+    here."""
+    with obs.device_range(f"{name}.backward"):
+        xs = [t.detach().requires_grad_() for t in saved]
+        with torch.enable_grad():
+            out = fn(*xs)
+        out = out if isinstance(out, tuple) else (out,)
+        return torch.autograd.grad(out, xs, grads, allow_unused=True)
 
 
 class _Flash(torch.autograd.Function):
@@ -103,7 +107,8 @@ class _Flash(torch.autograd.Function):
     def backward(ctx, g):
         fn = lambda q, k, v: _ref.flash_attention_ref(  # noqa: E731
             q, k, v, ctx.causal, ctx.window)
-        return (*_plain_vjp(fn, ctx.saved_tensors, (g,)), None, None)
+        return (*_plain_vjp("flash", fn, ctx.saved_tensors, (g,)), None,
+                None)
 
 
 def flash_attention(q, k, v, causal: bool = True, window: int = 0):
@@ -132,7 +137,8 @@ class _Swiglu(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _plain_vjp(_ref.swiglu_ref, ctx.saved_tensors, (g,))
+        return _plain_vjp("swiglu", _ref.swiglu_ref, ctx.saved_tensors,
+                          (g,))
 
 
 def fused_swiglu(x, wi, wg, wo):
@@ -156,7 +162,8 @@ class _Rglru(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _plain_vjp(_ref.rglru_ref, ctx.saved_tensors, (g.float(),))
+        return _plain_vjp("rglru", _ref.rglru_ref, ctx.saved_tensors,
+                          (g.float(),))
 
 
 def rglru(log_a, b):
@@ -182,7 +189,8 @@ class _Ssd(torch.autograd.Function):
         # the reference differentiates its oracle at the chunk it was
         # given (not the one the forward picked): the same function
         fn = lambda *a: _ref.ssd_ref(*a, max(ctx.chunk, 1))  # noqa: E731
-        return (*_plain_vjp(fn, ctx.saved_tensors, (gy, gstate)), None)
+        return (*_plain_vjp("ssd", fn, ctx.saved_tensors, (gy, gstate)),
+                None)
 
 
 def ssd(x, dt, A, Bm, Cm, chunk: int = 128):

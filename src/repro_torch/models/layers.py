@@ -19,8 +19,11 @@ the plan:
 Parameters are plain tensors in dicts keyed as in the reference pytree, in
 ``plan.param_dtype``; compute runs in ``plan.compute_dtype`` with f32
 softmax/norm accumulation.  Weights are cast to the compute dtype at each
-call, as the reference does.  The KV cache is updated in place (the
-reference returns a new cache; the port returns the same dicts, written).
+call, as the reference does, each through ``cast_weight``, which names
+the cast in a trace (the device range ``weights.cast``, the counters
+``weights.casts`` and ``weights.cast_bytes``).  The KV cache is updated
+in place (the reference returns a new cache; the port returns the same
+dicts, written).
 """
 from __future__ import annotations
 
@@ -29,6 +32,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.parallel.sharding import is_dtensor
 
@@ -45,6 +49,23 @@ def cdtype(plan: PlanConfig) -> torch.dtype:
 
 def pdtype(plan: PlanConfig) -> torch.dtype:
     return dtype_of(plan.param_dtype)
+
+
+def cast_weight(w, dtype: torch.dtype):
+    """``w.to(dtype)`` for a weight, never an activation or the KV cache:
+    every per-call cast of a weight to the compute dtype goes through here.
+    A cast that changes the dtype runs inside the device range
+    ``weights.cast`` and counts itself (``weights.casts``) and its source
+    bytes (``weights.cast_bytes``) in ``obs.METRICS``; a captured graph
+    records both and adds them on every replay."""
+    if w.dtype == dtype:
+        return w
+    mx = obs.METRICS
+    if mx.enabled:
+        mx.counter("weights.casts").inc()
+        mx.counter("weights.cast_bytes").add(w.numel() * w.element_size())
+    with obs.device_range("weights.cast"):
+        return w.to(dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -95,13 +116,13 @@ def rope(x, positions, theta: float):
 
 def _qkv(params, x, cfg: ArchConfig, plan: PlanConfig, positions):
     dt = cdtype(plan)
-    q = torch.einsum("bsd,dhk->bshk", x, params["wq"].to(dt))
-    k = torch.einsum("bsd,dhk->bshk", x, params["wk"].to(dt))
-    v = torch.einsum("bsd,dhk->bshk", x, params["wv"].to(dt))
+    q = torch.einsum("bsd,dhk->bshk", x, cast_weight(params["wq"], dt))
+    k = torch.einsum("bsd,dhk->bshk", x, cast_weight(params["wk"], dt))
+    v = torch.einsum("bsd,dhk->bshk", x, cast_weight(params["wv"], dt))
     if cfg.qkv_bias:
-        q = q + params["bq"].to(dt)
-        k = k + params["bk"].to(dt)
-        v = v + params["bv"].to(dt)
+        q = q + cast_weight(params["bq"], dt)
+        k = k + cast_weight(params["bk"], dt)
+        v = v + cast_weight(params["bv"], dt)
     q = rope(q, positions, cfg.rope_theta)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -216,7 +237,7 @@ def run_attention(params, x, cfg: ArchConfig, plan: PlanConfig, positions,
     """
     q, k, v = _qkv(params, x, cfg, plan, positions)
     o = attend(q, k, v, cfg, plan, positions, cache, decode, window)
-    y = torch.einsum("bshk,hkd->bsd", o, params["wo"].to(o.dtype))
+    y = torch.einsum("bshk,hkd->bsd", o, cast_weight(params["wo"], o.dtype))
     return y, cache
 
 
@@ -301,7 +322,7 @@ def run_mlp(params, x, cfg: ArchConfig, plan: PlanConfig):
     approximation, ``jax.nn.gelu``'s default)."""
     y = mlp_products(params, x, cfg, plan)
     if cfg.act == "gelu":
-        y = y + params["bo"].to(cdtype(plan))
+        y = y + cast_weight(params["bo"], cdtype(plan))
     return y
 
 
@@ -310,18 +331,19 @@ def mlp_products(params, x, cfg: ArchConfig, plan: PlanConfig):
     after a tensor-parallel reduction)."""
     dt = cdtype(plan)
     if cfg.act == "gelu":
-        h = torch.einsum("bsd,df->bsf", x, params["wi"].to(dt)) \
-            + params["bi"].to(dt)
+        h = torch.einsum("bsd,df->bsf", x, cast_weight(params["wi"], dt)) \
+            + cast_weight(params["bi"], dt)
         h = F.gelu(h, approximate="tanh")
-        return torch.einsum("bsf,fd->bsd", h, params["wo"].to(dt))
+        return torch.einsum("bsf,fd->bsd", h, cast_weight(params["wo"], dt))
     if plan.mlp_impl == "pallas":
         from repro_torch.kernels import ops as kops
-        return kops.fused_swiglu(x, params["wi"].to(dt), params["wg"].to(dt),
-                                 params["wo"].to(dt))
-    h = torch.einsum("bsd,df->bsf", x, params["wi"].to(dt))
-    g = torch.einsum("bsd,df->bsf", x, params["wg"].to(dt))
+        return kops.fused_swiglu(x, cast_weight(params["wi"], dt),
+                                 cast_weight(params["wg"], dt),
+                                 cast_weight(params["wo"], dt))
+    h = torch.einsum("bsd,df->bsf", x, cast_weight(params["wi"], dt))
+    g = torch.einsum("bsd,df->bsf", x, cast_weight(params["wg"], dt))
     h = F.silu(g) * h
-    return torch.einsum("bsf,fd->bsd", h, params["wo"].to(dt))
+    return torch.einsum("bsf,fd->bsd", h, cast_weight(params["wo"], dt))
 
 
 def moe_capacity(cfg: ArchConfig, n_tokens: int) -> int:
@@ -340,7 +362,7 @@ def moe_route(params, xt, cfg: ArchConfig, plan: PlanConfig):
 
 def moe_logits(router, xt, plan: PlanConfig):
     """The router's logits (t,e) in f32."""
-    return (xt @ router.to(cdtype(plan))).float()
+    return (xt @ cast_weight(router, cdtype(plan))).float()
 
 
 def moe_gates(logits, top_k: int):
@@ -405,9 +427,9 @@ def run_moe(params, x, cfg: ArchConfig, plan: PlanConfig):
     buf = buf[:-1].reshape(e, cap, d)
 
     # the experts' SwiGLU, batched over experts
-    h = torch.bmm(buf, params["wi"].to(dt))
-    g = torch.bmm(buf, params["wg"].to(dt))
-    yb = torch.bmm(F.silu(g) * h, params["wo"].to(dt))
+    h = torch.bmm(buf, cast_weight(params["wi"], dt))
+    g = torch.bmm(buf, cast_weight(params["wg"], dt))
+    yb = torch.bmm(F.silu(g) * h, cast_weight(params["wo"], dt))
 
     # combine: each token's k assignments, gated, summed in order
     yfl = torch.cat([yb.reshape(e * cap, d),

@@ -16,6 +16,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig, PlanConfig, ShapeSpec
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import transformer as T
@@ -103,8 +104,13 @@ class Model:
 
     def decode_step(self, params: T.Transformer, batch: dict, cache: list,
                     rules=None):
-        logits, cache, _ = T.forward(params, batch, self.cfg, self.plan,
-                                     cache=cache, decode=True, rules=rules)
+        """(logits (B,V), cache) of one decode step, inside the device
+        range ``decode.step`` (its sublayers' ranges nest in it:
+        ``transformer.DECODE_RANGES``, ``decode.head``)."""
+        with obs.device_range("decode.step"):
+            logits, cache, _ = T.forward(params, batch, self.cfg, self.plan,
+                                         cache=cache, decode=True,
+                                         rules=rules)
         return logits[:, -1], cache
 
     # -- abstract inputs -----------------------------------------------------

@@ -25,7 +25,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, PlanConfig
-from repro_torch.models.layers import cdtype
+from repro_torch.models.layers import cast_weight, cdtype
 from repro_torch.models.ssm import _causal_conv
 
 RG_C = 8.0
@@ -120,11 +120,12 @@ def run_rglru_block(params, x, cfg: ArchConfig, plan: PlanConfig, cache=None,
     """Returns (y, cache). cache = {'conv': (B,K-1,W), 'h': (B,W) f32},
     written in place (prefill and decode); None in the forward pass."""
     dt_c = cdtype(plan)
-    gate = F.gelu(torch.einsum("bsd,dw->bsw", x, params["w_in_g"].to(dt_c)),
+    gate = F.gelu(torch.einsum("bsd,dw->bsw", x,
+                               cast_weight(params["w_in_g"], dt_c)),
                   approximate="tanh")
-    u = torch.einsum("bsd,dw->bsw", x, params["w_in_x"].to(dt_c))
-    u, new_conv = _causal_conv(u, params["conv_w"].to(dt_c),
-                               params["conv_b"].to(dt_c),
+    u = torch.einsum("bsd,dw->bsw", x, cast_weight(params["w_in_x"], dt_c))
+    u, new_conv = _causal_conv(u, cast_weight(params["conv_w"], dt_c),
+                               cast_weight(params["conv_b"], dt_c),
                                cache["conv"] if cache is not None else None)
     log_a, b = rglru_gates(params, u)
     if decode:
@@ -139,7 +140,8 @@ def run_rglru_block(params, x, cfg: ArchConfig, plan: PlanConfig, cache=None,
         cache["conv"].copy_(new_conv)
         cache["h"].copy_(hs[:, -1])
     y = hs.to(dt_c) * gate
-    return torch.einsum("bsw,wd->bsd", y, params["w_out"].to(dt_c)), cache
+    return torch.einsum("bsw,wd->bsd", y,
+                        cast_weight(params["w_out"], dt_c)), cache
 
 
 def init_rglru_cache(cfg: ArchConfig, batch: int,

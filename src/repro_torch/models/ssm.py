@@ -26,7 +26,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig, PlanConfig
-from repro_torch.models.layers import cdtype
+from repro_torch.models.layers import cast_weight, cdtype
 
 
 def mamba2_spec(cfg: ArchConfig) -> dict:
@@ -119,11 +119,13 @@ def run_mamba2(params, x, cfg: ArchConfig, plan: PlanConfig, cache=None,
     (prefill and decode); None in the forward pass."""
     dt_c = cdtype(plan)
     di, n, h, p = cfg.d_inner, cfg.ssm_state, cfg.ssm_nheads, cfg.ssm_headdim
-    zxbcdt = torch.einsum("bsd,dw->bsw", x, params["in_proj"].to(dt_c))
+    zxbcdt = torch.einsum("bsd,dw->bsw", x,
+                          cast_weight(params["in_proj"], dt_c))
     z, xbc, dtt = _split_proj(zxbcdt, cfg)
     A = -torch.exp(params["A_log"].float())
     dt_act = F.softplus(dtt.float() + params["dt_bias"].float())
-    conv_w, conv_b = params["conv_w"].to(dt_c), params["conv_b"].to(dt_c)
+    conv_w = cast_weight(params["conv_w"], dt_c)
+    conv_b = cast_weight(params["conv_b"], dt_c)
 
     if decode:
         xbc, new_conv = _causal_conv(xbc, conv_w, conv_b, cache["conv"])
@@ -161,7 +163,8 @@ def run_mamba2(params, x, cfg: ArchConfig, plan: PlanConfig, cache=None,
     y32 = y.float() * F.silu(z.float())
     y32 = y32 * torch.rsqrt(y32.square().mean(-1, keepdim=True) + 1e-6)
     y = (y32 * params["norm"].float()).to(dt_c)
-    out = torch.einsum("bsw,wd->bsd", y, params["out_proj"].to(dt_c))
+    out = torch.einsum("bsw,wd->bsd", y,
+                       cast_weight(params["out_proj"], dt_c))
     return out, cache
 
 

@@ -36,6 +36,7 @@ from typing import Optional
 import torch
 from torch import nn
 
+from repro_torch import obs
 from repro_torch.configs.base import ArchConfig, PlanConfig
 from repro_torch.models import layers as L
 from repro_torch.models import rglru as R
@@ -257,28 +258,39 @@ def apply_layer(p: Layer, x, cfg: ArchConfig, plan: PlanConfig, positions,
     return _apply_layer(p, x, cfg, plan, positions, cache, decode, rules)
 
 
+#: the device range of a decode step's sublayer, by layer kind
+#: (``obs.device_range``; none in a forward pass or prefill)
+DECODE_RANGES = {"attn": "decode.attention", "ssm": "decode.ssm",
+                 "rec": "decode.rglru", "mlp": "decode.mlp",
+                 "moe": "decode.moe"}
+
+
 def _apply_layer(p, x, cfg: ArchConfig, plan: PlanConfig, positions,
                  cache, decode: bool, rules=None):
     aux = x.new_zeros((), dtype=torch.float32)
-    h = L.apply_norm(p.norm1, x, cfg)
-    if p.kind == "ssm":
-        mix, cache = S.run_mamba2(p.mixer, h, cfg, plan, cache, decode)
+    with obs.device_range(DECODE_RANGES[p.kind], decode):
+        h = L.apply_norm(p.norm1, x, cfg)
+        if p.kind == "ssm":
+            mix, cache = S.run_mamba2(p.mixer, h, cfg, plan, cache, decode)
+        elif p.kind == "rec":
+            mix, cache = R.run_rglru_block(p.mixer, h, cfg, plan, cache,
+                                           decode)
+        else:
+            mix, cache = L.run_attention(p.mixer, h, cfg, plan, positions,
+                                         cache, decode, attn_window(cfg))
         x = x + mix
+    if p.kind == "ssm":
         if rules is not None:
             x = constrain(x, rules, "batch", "seq_sharded", "act_embed")
         return x, cache, aux
-    if p.kind == "rec":
-        mix, cache = R.run_rglru_block(p.mixer, h, cfg, plan, cache, decode)
-    else:
-        mix, cache = L.run_attention(p.mixer, h, cfg, plan, positions, cache,
-                                     decode, attn_window(cfg))
-    x = x + mix
-    h = L.apply_norm(p.norm2, x, cfg)
-    if hasattr(p, "moe"):
-        ff, aux = L.run_moe(p.moe, h, cfg, plan)
-    else:
-        ff = L.run_mlp(p.mlp, h, cfg, plan)
-    x = x + ff
+    ff_kind = "moe" if hasattr(p, "moe") else "mlp"
+    with obs.device_range(DECODE_RANGES[ff_kind], decode):
+        h = L.apply_norm(p.norm2, x, cfg)
+        if ff_kind == "moe":
+            ff, aux = L.run_moe(p.moe, h, cfg, plan)
+        else:
+            ff = L.run_mlp(p.mlp, h, cfg, plan)
+        x = x + ff
     if rules is not None:
         x = constrain(x, rules, "batch", "seq_sharded", "act_embed")
     return x, cache, aux
@@ -339,7 +351,8 @@ def embed_inputs(params: Transformer, batch: dict, cfg: ArchConfig,
         return tp.embed(params, batch, cfg, plan, rules)
     dt = L.cdtype(plan)
     if cfg.frontend == "audio_frames":
-        return batch["features"].to(dt) @ replicate(params.frontend).to(dt)
+        return batch["features"].to(dt) @ L.cast_weight(
+            replicate(params.frontend), dt)
     # gather, then cast the B*S rows: the same numbers as the reference's
     # cast-then-gather without casting the whole table every step
     h = replicate(params.embed)[batch["tokens"]].to(dt)
@@ -415,14 +428,15 @@ def _forward(params: Transformer, batch: dict, cfg: ArchConfig,
                               cache[i] if cache is not None else None,
                               decode, rules)
         aux = aux + a
-    h = L.apply_norm(params.final_norm, h, cfg)
-    if rules is not None and is_dtensor(h) and tp.enabled(rules):
-        return tp.logits(params, h, cfg, rules), cache, aux
-    wout = params.embed.T if cfg.tie_embeddings else params.lm_head
-    if is_dtensor(wout):
-        h, wout = batch_only(h, rules), replicate(wout)
-    logits = torch.einsum("bsd,dv->bsv", h, wout.to(h.dtype))
-    if rules is not None:
-        # vocab gets the model axis (loss reductions stay sharded)
-        logits = constrain(logits, rules, "batch", None, "vocab")
+    with obs.device_range("decode.head", decode):
+        h = L.apply_norm(params.final_norm, h, cfg)
+        if rules is not None and is_dtensor(h) and tp.enabled(rules):
+            return tp.logits(params, h, cfg, rules), cache, aux
+        wout = params.embed.T if cfg.tie_embeddings else params.lm_head
+        if is_dtensor(wout):
+            h, wout = batch_only(h, rules), replicate(wout)
+        logits = torch.einsum("bsd,dv->bsv", h, L.cast_weight(wout, h.dtype))
+        if rules is not None:
+            # vocab gets the model axis (loss reductions stay sharded)
+            logits = constrain(logits, rules, "batch", None, "vocab")
     return logits, cache, aux

@@ -191,6 +191,11 @@ class MetricsRegistry:
         return self._get(Histogram, name, help,
                          buckets=buckets or DEFAULT_BUCKETS)
 
+    def counter_values(self) -> dict:
+        """name -> value of every counter."""
+        return {n: m.value for n, m in self._metrics.items()
+                if m.kind == "counter"}
+
     def to_prometheus(self) -> str:
         lines = []
         for m in self._metrics.values():
@@ -255,6 +260,9 @@ class NullMetrics:
     def histogram(self, name: str, help: str = "",
                   buckets: Optional[tuple] = None) -> _NullMetric:
         return _NULL_METRIC
+
+    def counter_values(self) -> dict:
+        return {}
 
     def to_prometheus(self) -> str:
         return ""

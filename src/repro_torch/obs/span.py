@@ -12,6 +12,14 @@ id.  The ``Tracer`` hands them out two ways:
   * the ``span()`` context manager for control-plane scopes on the
     tracer's own monotonic clock, with automatic parent nesting.
 
+A tracer on a host clock (``time.monotonic``, the default, or
+``time.perf_counter``) reads it once beside ``time.time_ns()`` when it is
+made: ``to_profiler_ns`` puts a span's edges on ``torch.profiler``'s
+timeline, whose host events Kineto stamps on the wall clock (ns since the
+Unix epoch), so program spans and profiled device work can be laid side
+by side.  A tracer on an injected clock (``TickClock``) has no such
+conversion.
+
 ``extend(t1, ws=...)`` grows an open span and accumulates a ``ws`` tag —
 the Watt*seconds this span's window booked, which the joule-attribution
 pass (``repro_torch.obs.attribution``) uses as the exact distribution
@@ -32,6 +40,8 @@ from pathlib import Path
 from typing import Optional
 
 FLEET_ROW = "fleet"     # default timeline for control-plane spans
+#: the host clocks a tracer can place on the profiler's timeline
+HOST_CLOCKS = (time.monotonic, time.perf_counter)
 
 
 @dataclass
@@ -107,6 +117,20 @@ class Tracer:
         self.dropped = 0            # spans past maxlen (counted, not kept)
         self._next_id = 1
         self._stack: list[Span] = []    # context-manager nesting
+        #: (this clock, ``time.time_ns()``) read together at construction;
+        #: None on an injected clock
+        self.epoch = (clock(), time.time_ns()) if clock in HOST_CLOCKS \
+            else None
+
+    def to_profiler_ns(self, t: float) -> int:
+        """``t`` (seconds on this tracer's clock) as nanoseconds on
+        ``torch.profiler``'s timeline (``time.time_ns()``'s)."""
+        if self.epoch is None:
+            raise ValueError(f"a tracer on the injected clock "
+                             f"{self.clock!r} has no place on the "
+                             f"profiler's timeline")
+        c0, ns0 = self.epoch
+        return ns0 + round((t - c0) * 1e9)
 
     def begin(self, name: str, *, node: str = FLEET_ROW,
               t0: Optional[float] = None, parent: Optional[Span] = None,
@@ -182,7 +206,12 @@ class NullTracer:
     enabled = False
     spans: tuple = ()
     dropped = 0
+    epoch = None
     clock = staticmethod(time.monotonic)
+
+    def to_profiler_ns(self, t: float) -> int:
+        raise ValueError("tracing is off: no span is on the profiler's "
+                         "timeline")
 
     def begin(self, name: str, **kw) -> Span:
         return _NULL_SPAN

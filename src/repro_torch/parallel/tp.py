@@ -442,7 +442,7 @@ def mlp(params, h, cfg, plan, out_pl):
     y = region(body, [_at(x, Partial() if split else Replicate())], x, *ws)
     y = _to(y, out_pl)
     if cfg.act == "gelu":
-        y = y + params["bo"].to(L.cdtype(plan))
+        y = y + L.cast_weight(params["bo"], L.cdtype(plan))
     return y
 
 
@@ -475,9 +475,9 @@ def _project(params, name: str, x, cfg, plan, form: str, pad: int):
         Shard((4 if d == 2 else 2) if grouped else d + 1)
 
     def body(x, w, b=None):
-        y = torch.einsum("bsd,dhk->bshk", x, w.to(dt))
+        y = torch.einsum("bsd,dhk->bshk", x, L.cast_weight(w, dt))
         if b is not None:
-            y = y + b.to(dt)
+            y = y + L.cast_weight(b, dt)
         bs, s, h, dh = y.shape
         if d != 1 and pad > h:
             y = torch.cat([y, y.new_zeros((bs, s, pad - h, dh))], dim=2)
@@ -658,7 +658,7 @@ def _decode_seq(params, q, k, v, cfg, plan, positions, cache, window,
             w = wo.shape[d]
             o = o[..., r * w:(r + 1) * w] if d == 1 \
                 else o[:, :, r * w:(r + 1) * w]
-        return torch.einsum("bshk,hkd->bsd", o, wo.to(dt))
+        return torch.einsum("bshk,hkd->bsd", o, L.cast_weight(wo, dt))
     y = region(out, [_at(pack, Partial() if split else Replicate())],
                pack, wo)
     return _to(y, out_pl)
@@ -757,9 +757,9 @@ def moe(params, h, cfg, plan, out_pl):
         buf = torch.zeros((el * capl + 1, d), dtype=dt, device=x.device)
         buf.index_copy_(0, lslot, xt[tok].to(dt))
         buf = buf[:-1].reshape(el, capl, d)
-        hh = torch.bmm(buf, wi.to(dt))
-        g = torch.bmm(buf, wg.to(dt))
-        yb = torch.bmm(F.silu(g) * hh, wo.to(dt))
+        hh = torch.bmm(buf, L.cast_weight(wi, dt))
+        g = torch.bmm(buf, L.cast_weight(wg, dt))
+        yb = torch.bmm(F.silu(g) * hh, L.cast_weight(wo, dt))
         yfl = torch.cat([yb.reshape(el * capl, d),
                          torch.zeros((1, d), dtype=dt, device=x.device)])
         y = yfl[lslot] * (gate.reshape(-1, 1).to(dt) * mine[:, None])
@@ -802,10 +802,11 @@ def rglru(params, h, cfg, plan, cache, decode: bool, out_pl):
     conv = [cache["conv"]] if cache is not None else []
 
     def inputs(x, wx, wg, cw, cb, *conv):
-        gate = F.gelu(torch.einsum("bsd,dw->bsw", x, wg.to(dt)),
+        gate = F.gelu(torch.einsum("bsd,dw->bsw", x, L.cast_weight(wg, dt)),
                       approximate="tanh")
-        u = torch.einsum("bsd,dw->bsw", x, wx.to(dt))
-        u, new_conv = _causal_conv(u, cw.to(dt), cb.to(dt),
+        u = torch.einsum("bsd,dw->bsw", x, L.cast_weight(wx, dt))
+        u, new_conv = _causal_conv(u, L.cast_weight(cw, dt),
+                                   L.cast_weight(cb, dt),
                                    conv[0] if conv else None)
         if conv:
             conv[0].copy_(new_conv)
@@ -830,7 +831,7 @@ def rglru(params, h, cfg, plan, cache, decode: bool, out_pl):
         if len(rest) > 5:
             rest[5].copy_(hs[:, -1])
         y = hs.to(dt) * gate
-        return torch.einsum("bsw,wd->bsd", y, wo.to(dt))
+        return torch.einsum("bsw,wd->bsd", y, L.cast_weight(wo, dt))
     y = region(recur, [_at(x, Partial())], uf, u, gate, w["w_out"],
                *(w[n] for n in gn), *hc)
     return _to(y, out_pl)
@@ -849,7 +850,8 @@ def mamba2(params, h, cfg, plan, cache, decode: bool, out_pl):
     w = {n: fsdp_gather(params[n]) for n in _SSM_SPLIT}
     _need_split(w, _SSM_SPLIT, "ssm")
     cols = _at(x, Shard(2))
-    zx = region(lambda x, wp: torch.einsum("bsd,dw->bsw", x, wp.to(dt_c)),
+    zx = region(lambda x, wp: torch.einsum("bsd,dw->bsw", x,
+                                           L.cast_weight(wp, dt_c)),
                 [cols], x, w["in_proj"])
     # in_proj's columns cut across z, x, B, C and dt: the whole
     # activation, then each rank's own parts of it
@@ -859,7 +861,8 @@ def mamba2(params, h, cfg, plan, cache, decode: bool, out_pl):
     def convolve(zx, cw, cb, *conv):
         c = cw.shape[1]                        # the conv weights' columns
         xbc = zx[..., di + r * c:di + (r + 1) * c]
-        y, new_conv = S._causal_conv(xbc, cw.to(dt_c), cb.to(dt_c),
+        y, new_conv = S._causal_conv(xbc, L.cast_weight(cw, dt_c),
+                                     L.cast_weight(cb, dt_c),
                                      conv[0] if decode else None)
         if conv:
             conv[0].copy_(new_conv)
@@ -914,7 +917,7 @@ def mamba2(params, h, cfg, plan, cache, decode: bool, out_pl):
     def out(y32, ss, nw, wo):
         y32 = y32 * torch.rsqrt(ss / di + 1e-6)
         y = (y32 * nw.float()).to(dt_c)
-        return torch.einsum("bsw,wd->bsd", y, wo.to(dt_c))
+        return torch.einsum("bsw,wd->bsd", y, L.cast_weight(wo, dt_c))
     y = region(out, [_at(x, Partial())], y32, ss, w["norm"], w["out_proj"])
     return _to(y, out_pl)
 
@@ -937,7 +940,7 @@ def embed(params, batch, cfg, plan, rules):
         f = batched(batch["features"], rules)
         w = fsdp_gather(params.frontend)
         split = model_split({"frontend": w}, {"frontend": (1,)}, "embed")
-        return region(lambda f, w: f.to(dt) @ w.to(dt),
+        return region(lambda f, w: f.to(dt) @ L.cast_weight(w, dt),
                       [_at(f, Shard(2) if split else Replicate())], f, w)
     tok = batched(batch["tokens"], rules)
     w = fsdp_gather(params.embed)
@@ -975,8 +978,8 @@ def logits(params, h, cfg, rules):
     w = fsdp_gather(params.embed if tied else params.lm_head)
 
     def body(x, w):
-        return torch.einsum("bsd,dv->bsv", x, (w.T if tied else w)
-                            .to(x.dtype))
+        return torch.einsum("bsd,dv->bsv", x,
+                            L.cast_weight(w.T if tied else w, x.dtype))
     name = "embed" if tied else "lm_head"
     split = model_split({name: w}, {name: (0, 1)}, "logits")
     if not split or split_dim(w, name) == (0 if tied else 1):

@@ -18,6 +18,19 @@ the window's energy is split across the requests that shared the batch
 metered window follows ``torch.cuda.synchronize()``, so the meter bills
 the device's work and not the host's enqueue time.
 
+With tracing on (``obs.enable()``) the loop counts its replays and
+tokens (``serve.fill_replays``, ``serve.decode_replays``,
+``serve.tokens_out``) and traces each request (``serve.request`` over
+``serve.queue_wait``, ``serve.prefill``, ``serve.decode``).  A metered
+loop stamps those spans on the meter's billing timeline, as the reference
+does; a loop without a meter stamps them on ``obs.TRACER``'s clock and
+adds the host's phases of each step: ``serve.step`` (tagged ``kind`` fill,
+decode or idle, ``active``, ``pos``) over ``serve.fill`` (a filled
+request's token copies and the enqueue of its forced replays),
+``serve.launch`` (the decode step's input copies and replay) and
+``serve.sync`` (the wait for the argmax on the host).  Those spans
+``obs.to_profiler_ns`` lays on ``torch.profiler``'s timeline.
+
 ``park()`` stops the loop taking new work and ``drain()`` evicts its queue
 and active slots as resumable requests (a resubmitted request
 teacher-forces prompt+output through the new loop's cache).
@@ -43,6 +56,7 @@ from repro_torch import obs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels._build import add_launches, capture_graph
 from repro_torch.models.model import Model
+from repro_torch.obs.span import Span
 from repro_torch.telemetry.dvfs import LiveUtilization
 from repro_torch.telemetry.energy import (IDLE_PHASE, INFRA_TENANT,
                                           DecodeEnergyMeter)
@@ -86,6 +100,11 @@ class DecodeGraph:
     counts the launches its capture recorded (``launches``, per
     ``CudaKernel``) and adds them to each kernel's count on every replay;
     the capture's own recorded launches ran nothing and are not counted.
+    So too what the capture recorded for ``repro_torch.obs``
+    (``recorded``: the counters its Python bumped, ``weights.cast_bytes``
+    and ``weights.casts``, and, when device ranges were on, its ranges
+    ``decode.step`` and those nested in it), handed on at every replay;
+    None when tracing was off, and then a replay does nothing more.
     ``capture_ms`` is the capture's wall time (the warm-up apart);
     ``pool_bytes`` the device memory the graph's private pool took."""
 
@@ -108,10 +127,12 @@ class DecodeGraph:
         def logits():
             return step(params, batch, cache)[0]
         (self.graph, self.logits, self.launches, self.capture_ms,
-         self.pool_bytes) = capture_graph(
+         self.pool_bytes, self.recorded) = capture_graph(
             logits, dev, None if rules is None else rules.mesh)
 
     def replay(self) -> torch.Tensor:
+        if self.recorded is not None:
+            obs.replaying(self.recorded)
         self.graph.replay()
         add_launches(self.launches)
         return self.logits
@@ -128,7 +149,7 @@ class Request:
     energy_ws: float = 0.0      # attributed prefill+decode Watt*seconds
     prefill_ws: float = 0.0     # ... the prefill share of it
     decode_ws: float = 0.0      # ... the decode share of it
-    enq_t: Optional[float] = None   # host meter time at submit (queue-wait)
+    enq_t: Optional[float] = None   # submit time on the span timeline
     queue_wait_s: float = 0.0   # meter-time spent queued before each fill
 
 
@@ -199,11 +220,20 @@ class ServeLoop:
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
+    def _host_tracer(self):
+        """``obs.TRACER`` when it stamps this loop's spans on its own
+        clock (tracing on, no meter), else None."""
+        tr = obs.TRACER
+        return tr if tr.enabled and self.meter is None else None
+
     def submit(self, req: Request):
         # stamp the enqueue on the meter's busy-time timeline (a peek,
-        # not a clock() call — the virtual tick clock must not advance)
+        # not a clock() call — the virtual tick clock must not advance),
+        # or without a meter on the tracer's clock
         if self.meter is not None:
             req.enq_t = self.meter.now
+        elif obs.TRACER.enabled:
+            req.enq_t = obs.TRACER.clock()
         self.queue.append(req)
 
     @property
@@ -239,8 +269,8 @@ class ServeLoop:
                 self.active[i] = None
                 moved.append(req)
         self._close_idle()
-        if self.meter is not None:
-            now = self.meter.now
+        if self._req_spans:
+            now = self._span_clock()
             for req in moved:
                 ent = self._req_spans.pop(req.rid, None)
                 if ent is not None:
@@ -262,9 +292,13 @@ class ServeLoop:
             t0 = self.meter.now
             self.utilization.record(phase, t0, t0 + seconds, util)
 
-    def _fill_slots(self):
+    def _fill_slots(self) -> int:
+        """Fill free slots from the queue, teacher-forcing each prompt;
+        returns the number of forced replays."""
         if self.parked:
-            return
+            return 0
+        forced = 0
+        htr = self._host_tracer()
         for i in range(self.slots):
             if self.active[i] is None and self.queue:
                 req = self.queue.pop(0)
@@ -279,51 +313,83 @@ class ServeLoop:
                         mx.histogram(
                             "queue_wait_s",
                             "meter-time queued before a slot").observe(qw)
-                    tr = obs.TRACER
-                    if tr.enabled:
-                        root = tr.begin("serve.request", node=self.node,
-                                        t0=req.enq_t,
-                                        tags={"rid": req.rid,
-                                              "tenant": req.tenant})
-                        tr.begin("serve.queue_wait", node=self.node,
-                                 t0=req.enq_t, parent=root,
-                                 tags={"rid": req.rid,
-                                       "tenant": req.tenant}
-                                 ).finish(self.meter.now)
-                        self._req_spans[req.rid] = {"root": root}
                 # teacher-forced sequential prefill through the decode path
                 # (a migrated request also teacher-forces its output)
                 seq = np.asarray(req.prompt, np.int32) if not req.out else \
                     np.concatenate([np.asarray(req.prompt, np.int32),
                                     np.asarray(req.out, np.int32)])
+                prefill = self._open_request(req)
+                fill = None if htr is None else htr.begin(
+                    "serve.fill", node=self.node,
+                    tags={"rid": req.rid, "replays": len(seq) - 1})
                 t0 = self.clock()
                 for t, tok in enumerate(seq[:-1]):
                     self._step_one(i, int(tok), t)
+                forced += len(seq) - 1
+                if fill is not None:
+                    fill.finish(htr.clock())
+                ws = None
                 if self.meter is not None:
                     self._sync()
                     dt = self.clock() - t0
                     util = 1.0 / self.slots
                     self._record_util("prefill", dt, util)
-                    p0 = self.meter.now
                     ws = self.meter.observe(dt, util=util, phase="prefill",
                                             tenants=[req.tenant])
                     req.energy_ws += ws
                     req.prefill_ws += ws
-                    ent = self._req_spans.get(req.rid)
-                    if ent is not None:
-                        tr = obs.TRACER
-                        tr.begin("serve.prefill", node=self.node, t0=p0,
-                                 parent=ent["root"],
-                                 tags={"rid": req.rid, "tenant": req.tenant,
-                                       "phase": "prefill", "ws": ws}
-                                 ).finish(self.meter.now)
-                        ent["decode"] = tr.begin(
-                            "serve.decode", node=self.node,
-                            t0=self.meter.now, parent=ent["root"],
-                            tags={"rid": req.rid, "tenant": req.tenant,
-                                  "phase": "decode", "ws": 0.0})
+                self._close_prefill(req, prefill, ws)
                 self.pos[i] = len(seq) - 1
                 self._tokens[i, 0] = int(seq[-1])
+        mx = obs.METRICS
+        if mx.enabled and forced:
+            mx.counter("serve.fill_replays",
+                       "teacher-forced prompt replays").add(forced)
+        return forced
+
+    def _span_clock(self) -> float:
+        """Now on this loop's span timeline: the meter's billing clock (a
+        peek: the virtual tick clock must not advance), else the
+        tracer's."""
+        return self.meter.now if self.meter is not None \
+            else obs.TRACER.clock()
+
+    def _open_request(self, req: Request) -> Optional[Span]:
+        """As a request's fill begins: its ``serve.request`` from its
+        submit, with ``serve.queue_wait`` closed now; returns its
+        ``serve.prefill``, opened now.  None with tracing off or for a
+        request submitted untraced."""
+        tr = obs.TRACER
+        if not tr.enabled or req.enq_t is None:
+            return None
+        now = self._span_clock()
+        tags = {"rid": req.rid, "tenant": req.tenant}
+        # the request's root nests under no step
+        root = Span(name="serve.request", node=self.node, t0=req.enq_t,
+                    tags=dict(tags))
+        tr.add_spans([root])
+        tr.begin("serve.queue_wait", node=self.node, t0=req.enq_t,
+                 parent=root, tags=dict(tags)).finish(now)
+        self._req_spans[req.rid] = {"root": root}
+        return tr.begin("serve.prefill", node=self.node, t0=now,
+                        parent=root, tags={**tags, "phase": "prefill"})
+
+    def _close_prefill(self, req: Request, prefill: Optional[Span],
+                       ws: Optional[float]) -> None:
+        """Close ``prefill`` now and open the request's ``serve.decode``;
+        a billing loop tags both with their Watt*seconds ``ws``."""
+        if prefill is None:
+            return
+        now = self._span_clock()
+        tags = {"rid": req.rid, "tenant": req.tenant, "phase": "decode"}
+        if ws is not None:
+            prefill.tags["ws"] = ws
+            tags["ws"] = 0.0
+        prefill.finish(now)
+        ent = self._req_spans[req.rid]
+        ent["decode"] = obs.TRACER.begin("serve.decode", node=self.node,
+                                         t0=now, parent=ent["root"],
+                                         tags=tags)
 
     def capture(self) -> Optional[DecodeGraph]:
         """On ``cuda``, the decode step's graph for the loop's current
@@ -396,9 +462,19 @@ class ServeLoop:
         """One decode step across all active slots. Returns #active.
 
         With no active slots the step books floor-watts ``idle`` energy
-        instead of nothing — see ``_idle_step``."""
-        self._fill_slots()
+        instead of nothing — see ``_idle_step``.  Without a meter and
+        with tracing on the step is the span ``serve.step``."""
+        tr = self._host_tracer()
+        if tr is None:
+            return self._step(None)
+        with tr.span("serve.step", node=self.node) as sp:
+            return self._step(sp)
+
+    def _step(self, sp) -> int:
+        forced = self._fill_slots()
         if all(r is None for r in self.active):
+            if sp is not None:
+                sp.tags["kind"] = "idle"
             return self._idle_step()
         self._close_idle()
         participants = [r for r in self.active if r is not None]
@@ -406,8 +482,25 @@ class ServeLoop:
         # one position for the whole batch: the max over the active slots
         pos = int(max(self.pos[i] for i, r in enumerate(self.active)
                       if r is not None))
-        logits = self.decode(self._tokens, pos)
-        nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        if sp is None:
+            logits = self.decode(self._tokens, pos)
+            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+        else:
+            tr = obs.TRACER
+            sp.tags.update(kind="fill" if forced else "decode",
+                           active=len(participants), pos=pos)
+            launch = tr.begin("serve.launch", node=self.node)
+            logits = self.decode(self._tokens, pos)
+            t = tr.clock()
+            launch.finish(t)
+            sync = tr.begin("serve.sync", node=self.node, t0=t)
+            nxt = torch.argmax(logits, dim=-1).cpu().numpy()
+            sync.finish(tr.clock())
+        mx = obs.METRICS
+        if mx.enabled:
+            mx.counter("serve.decode_replays", "decode-step replays").inc()
+            mx.counter("serve.tokens_out", "tokens generated").add(
+                len(participants))
         if self.meter is not None:
             # the step's Ws splits evenly across the requests in the batch
             self._sync()
@@ -445,8 +538,8 @@ class ServeLoop:
                 self.active[i] = None
                 self.finished.append(req)
                 ent = self._req_spans.pop(req.rid, None)
-                if ent is not None and self.meter is not None:
-                    end = self.meter.now
+                if ent is not None:
+                    end = self._span_clock()
                     if "decode" in ent:
                         ent["decode"].finish(end)
                     ent["root"].tags["tokens"] = len(req.out)

@@ -8,7 +8,11 @@ divided by their number, the loss averaged; with ``grad_compress="int8_ef"``
 the gradients pass the error-feedback compression; then they are clipped
 to a global norm of 1.0 and the optimizer updates the parameters in place
 (the reference donates its buffers: the same thing).  ``metrics`` holds
-the loss and the gradient norm before the clip.
+the loss and the gradient norm before the clip.  With device ranges on
+(``obs.enable_ranges``) the step runs inside ``train.step``, each
+microbatch's forward inside ``train.forward`` and its backward (the
+forward recomputed under remat included) inside ``train.backward``, the
+clip and the update inside ``train.optimizer``.
 
 The parameters are frozen (``requires_grad=False``) outside a step; a step
 turns gradients on for its own parameters while it runs, so a serving path
@@ -36,6 +40,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch import obs
 from repro_torch.convert import leaf_groups
 from repro_torch.kernels._build import add_launches, capture_graph
 from repro_torch.models.layers import dtype_of
@@ -118,8 +123,10 @@ def make_grad_step(model: Model, rules=None):
             p.requires_grad_(True)
         try:
             for mb in _microbatches(batch, n_micro):
-                loss, _ = model.loss(params, mb, rules)
-                loss.backward()
+                with obs.device_range("train.forward"):
+                    loss, _ = model.loss(params, mb, rules)
+                with obs.device_range("train.backward"):
+                    loss.backward()
                 loss = loss.detach()
                 lsum = loss if lsum is None else lsum + loss
                 for n, p in named.items():
@@ -159,7 +166,7 @@ def make_train_step(model: Model, rules=None):
 
     def train_step(params, opt_state, batch):
         from repro_torch.parallel.sharding import mixed_inputs
-        with mixed_inputs(params.embed):
+        with mixed_inputs(params.embed), obs.device_range("train.step"):
             return _step(params, opt_state, batch)
 
     def _step(params, opt_state, batch):
@@ -170,16 +177,17 @@ def make_train_step(model: Model, rules=None):
         if plan.grad_compress == "int8_ef":
             grads, ef_state = C.ef_compress_tree(grads, opt_state["ef"])
 
-        gnorm = global_norm(grads)
-        scale = torch.clamp(CLIP_NORM / torch.clamp(gnorm, min=1e-9),
-                            max=1.0)
-        for ts in grads.values():
-            for g in ts:
-                g.mul_(scale)
+        with obs.device_range("train.optimizer"):
+            gnorm = global_norm(grads)
+            scale = torch.clamp(CLIP_NORM / torch.clamp(gnorm, min=1e-9),
+                                max=1.0)
+            for ts in grads.values():
+                for g in ts:
+                    g.mul_(scale)
 
-        core_state = {k: v for k, v in opt_state.items() if k != "ef"}
-        new_state = O.opt_update(cfg, param_leaves(cfg, params), grads,
-                                 core_state)
+            core_state = {k: v for k, v in opt_state.items() if k != "ef"}
+            new_state = O.opt_update(cfg, param_leaves(cfg, params), grads,
+                                     core_state)
         if ef_state is not None:
             new_state["ef"] = ef_state
         return params, new_state, {"loss": loss, "grad_norm": gnorm}
@@ -267,9 +275,15 @@ class TrainGraph:
     keeps the launches its capture recorded (``launches``, per
     ``CudaKernel``) and adds them to each kernel's count on every replay;
     the capture's own recorded launches ran nothing and are not counted.
+    So too what the capture recorded for ``repro_torch.obs``
+    (``recorded``: counters and, with device ranges on, the step's
+    ranges), handed on at every replay; None when tracing was off.
     ``capture_ms`` is the capture's wall time (the eager step apart),
     ``pool_bytes`` the device memory the graph's private pool took,
     ``binds`` the number of ``(params, opt_state)`` pairs bound so far.
+    With tracing on, the eager step, the capture and each replay's copy
+    and launch are the spans ``train.eager_step``, ``train.capture`` and
+    ``train.replay`` on ``obs.TRACER``'s clock.
 
     On the CPU there is no capture: each call is the eager step and the
     write-back, with the same checks of the batch.
@@ -294,6 +308,7 @@ class TrainGraph:
         self.capture_ms = None
         self.pool_bytes = None
         self.launches: dict = {}
+        self.recorded = None
         self.binds = 0
         self._bound = None
         self._spec = None
@@ -315,41 +330,52 @@ class TrainGraph:
             raise ValueError(f"TrainGraph was bound to batches of "
                              f"{self._spec}, got {spec}")
         if self.model.device.type != "cuda":
-            return self._eager(params, opt_state, batch)
+            with obs.TRACER.span("train.eager_step"):
+                return self._eager(params, opt_state, batch)
         if self.graph is None:
             raise RuntimeError("TrainGraph: the step's capture failed for "
                                "these params and opt_state; nothing runs "
                                "eagerly in its place")
+        tr = obs.TRACER
+        sp = tr.begin("train.replay") if tr.enabled else None
         for k, v in batch.items():
             self._static[k].copy_(v)
+        if self.recorded is not None:
+            obs.replaying(self.recorded)
         self.graph.replay()
         add_launches(self.launches)
+        if sp is not None:
+            sp.finish(tr.clock())
         return params, opt_state, self.metrics
 
     def _bind(self, params, opt_state, batch, spec):
         # free the old graph and its pool before anything new is made
-        self.graph = self.metrics = self._static = None
+        self.graph = self.metrics = self._static = self.recorded = None
         self.capture_ms = self.pool_bytes = None
         self.launches = {}
         self._spec = spec
         self.binds += 1
         dev = self.model.device
         self._bound = (params, opt_state)
+        tr = obs.TRACER
         if dev.type != "cuda":
-            return self._eager(params, opt_state, batch)
+            with tr.span("train.eager_step"):
+                return self._eager(params, opt_state, batch)
         static = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
                   for k, v in batch.items()}
         for k, v in batch.items():
             static[k].copy_(v)
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side):
-            out = self._eager(params, opt_state, static)
-        torch.cuda.current_stream(dev).wait_stream(side)
-        torch.cuda.synchronize(dev)
-        (self.graph, self.metrics, self.launches, self.capture_ms,
-         self.pool_bytes) = capture_graph(
-            lambda: self._eager(params, opt_state, static)[2], dev,
-            None if self.rules is None else self.rules.mesh)
+        with tr.span("train.eager_step"):
+            with torch.cuda.stream(side):
+                out = self._eager(params, opt_state, static)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            torch.cuda.synchronize(dev)
+        with tr.span("train.capture"):
+            (self.graph, self.metrics, self.launches, self.capture_ms,
+             self.pool_bytes, self.recorded) = capture_graph(
+                lambda: self._eager(params, opt_state, static)[2], dev,
+                None if self.rules is None else self.rules.mesh)
         self._static = static
         return out

@@ -164,9 +164,14 @@ def test_run_serves_on_the_callers_weights_with_a_measured_governor(
         monkeypatch, tmp_path, capsys):
     """The library entry on weights the caller holds: every node's
     governor re-verifies through one verifier on the measured backend it
-    is given (its trials, if drift trips, run at the recon shape)."""
+    is given.  The nodes meter on a virtual clock at the H100 envelope:
+    on the wall clock a loaded host's jitter reads as drift, and a
+    migration then rests on a 0.05-s trial window.  The next test plants
+    drift, so that the trials run, at the recon shape."""
     monkeypatch.setitem(CARD_SHAPES, "cpu_decode",
                         ShapeSpec("cpu_decode", 48, 2, "decode"))
+    monkeypatch.setattr(serve, "Node", _ticking(
+        Node, lambda: envelope_for(power.H100), TickClock))
     cfg = get_config("tiny-test")
     model = Model(cfg, cfg.plan.replace(mlp_impl="pallas"), device="cpu")
     params = model.init(torch.Generator().manual_seed(3))
@@ -188,6 +193,56 @@ def test_run_serves_on_the_callers_weights_with_a_measured_governor(
     # one card: the governors share one verifier and its trial cache
     assert len({id(n.governor._verifier) for n in out["nodes"]}) == 1
     assert "served 4 requests" in capsys.readouterr().out
+
+
+class _Drifting(TickClock):
+    """A virtual clock whose tick grows ``factor``-fold after ``calls``
+    readings: every metered window from then on books that much more
+    energy than the rolling median, which is planted drift."""
+
+    def __init__(self, dt: float, calls: int = 24, factor: float = 4.0):
+        super().__init__(dt)
+        self.left, self.factor = calls, factor
+
+    def __call__(self) -> float:
+        self.left -= 1
+        if self.left == 0:
+            self.dt *= self.factor
+        return super().__call__()
+
+
+def test_run_migrates_through_the_measured_rung_when_drift_trips(
+        monkeypatch, capsys):
+    """As above, with drift planted on each node's virtual clock: every
+    governor re-verifies its migration with real trials on the measured
+    backend it is given, at the recon shape, and says so in its events."""
+    monkeypatch.setitem(CARD_SHAPES, "cpu_decode",
+                        ShapeSpec("cpu_decode", 48, 2, "decode"))
+    monkeypatch.setattr(serve, "Node", _ticking(
+        Node, lambda: envelope_for(power.H100), _Drifting))
+    cfg = get_config("tiny-test")
+    model = Model(cfg, cfg.plan.replace(mlp_impl="pallas"), device="cpu")
+    params = model.init(torch.Generator().manual_seed(3))
+    args = serve.parser().parse_args(
+        ["--fleet", "2", "--slots", "2", "--requests", "8", "--max-new",
+         "8", "--govern", "--verify-rung", "measured", "--recon-shape",
+         "cpu_decode", "--flush-every", "1", "--checkpoint-every", "2"])
+    measured = MeasuredBackend(device="cpu", source=ConstantSource(200.0),
+                               params={cfg.name: params}, window_s=0.05,
+                               decode_steps=4)
+    out = serve.run(args, model=model, params=params, measured=measured)
+    assert len(out["finished"]) == 8
+    events = [ev for node in out["nodes"] for ev in node.governor.events]
+    assert events
+    for ev in events:
+        assert ev.verify_rung == "measured" and ev.drift_ratio > 1.5
+    cache = out["nodes"][0].governor._verifier.cache
+    trials = [m for m in cache.values() if m.source == "measured"]
+    # both sides of a migration ran their real trial, at the recon shape
+    assert len(trials) >= 2 and len(measured.outputs) >= 2
+    for m in trials:
+        assert m.ok and m.trace.meta["shape"] == "cpu_decode"
+    assert "served 8 requests" in capsys.readouterr().out
 
 
 # ---------------------------------------------------------------------------
