@@ -1441,10 +1441,12 @@ def graph_check(loop) -> dict:
     g = loop.graph
     out = {"bit_equal": not differ, "differ": differ,
            "capture_ms": g.capture_ms, "pool_bytes": g.pool_bytes,
+           "frozen_bytes": g.frozen_bytes,
            "launches_a_replay": {k.name: n for k, n in g.launches.items()},
            "seconds": time.perf_counter() - t_start}
     log(f"[serve] {model.cfg.name} decode graph: captured in "
-        f"{g.capture_ms:.1f} ms, private pool {g.pool_bytes} B, launches "
+        f"{g.capture_ms:.1f} ms, private pool {g.pool_bytes} B, frozen "
+        f"casts {g.frozen_bytes} B, launches "
         f"a replay "
         f"{json.dumps(out['launches_a_replay'])}; {len(prompt) - 1} prompt "
         f"steps then {GRAPH_STEPS} replays vs the eager step on a copy of "

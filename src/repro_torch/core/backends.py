@@ -498,9 +498,11 @@ class DecodeTrial:
 
     The inputs go through static buffers, as ``ServeLoop``'s: ``tokens``
     (b, 1) and a 0-d ``pos``.  On ``cuda`` the first call captures the
-    step under ``rules`` as ``serve.engine.DecodeGraph`` (``graph``), and
-    every call copies each token column into ``tokens``, fills ``pos`` and
-    replays; on the CPU the same buffers go through the eager step.  A
+    step under ``rules`` as ``serve.engine.DecodeGraph`` (``graph``), its
+    weights' casts frozen where the card's memory holds them, and a call
+    captures it again once a frozen weight has been written in place;
+    every call copies each token column into ``tokens``, fills ``pos``
+    and replays; on the CPU the same buffers go through the eager step.  A
     call waits for the device (``sync``) and returns a clone of the last
     step's logits.  ``eager()`` is one call through the eager step on the
     card too, which a replayed call is held to."""
@@ -534,8 +536,9 @@ class DecodeTrial:
     def __call__(self) -> torch.Tensor:
         if self.toks.device.type != "cuda":
             return self._run(self._eager_step)
-        if self.graph is None:
+        if self.graph is None or self.graph.stale():
             from repro_torch.serve.engine import DecodeGraph
+            self.graph = None               # free the old copies first
             self.graph = DecodeGraph(self.model, self.params, self.cache,
                                      self.tokens, self.pos, self.rules)
         return self._run(self.graph.replay)

@@ -21,13 +21,21 @@ Parameters are plain tensors in dicts keyed as in the reference pytree, in
 softmax/norm accumulation.  Weights are cast to the compute dtype at each
 call, as the reference does, each through ``cast_weight``, which names
 the cast in a trace (the device range ``weights.cast``, the counters
-``weights.casts`` and ``weights.cast_bytes``).  The KV cache is updated
-in place (the reference returns a new cache; the port returns the same
-dicts, written).
+``weights.casts`` and ``weights.cast_bytes``).  A step whose weights do
+not change between calls (the captured decode step,
+``serve.engine.DecodeGraph``) casts each weight once instead: under a
+``FrozenCasts`` memo that records one step's casts, the steps it then
+serves read the kept copies, the same bits, and cast nothing (counters
+``weights.frozen_casts`` and ``weights.frozen_bytes``).  The KV cache is
+updated in place (the reference returns a new cache; the port returns the
+same dicts, written).
 """
 from __future__ import annotations
 
 import math
+import weakref
+from contextlib import contextmanager
+from contextvars import ContextVar
 
 import torch
 import torch.nn.functional as F
@@ -53,19 +61,133 @@ def pdtype(plan: PlanConfig) -> torch.dtype:
 
 def cast_weight(w, dtype: torch.dtype):
     """``w.to(dtype)`` for a weight, never an activation or the KV cache:
-    every per-call cast of a weight to the compute dtype goes through here.
+    every cast of a weight to the compute dtype goes through here.
     A cast that changes the dtype runs inside the device range
     ``weights.cast`` and counts itself (``weights.casts``) and its source
     bytes (``weights.cast_bytes``) in ``obs.METRICS``; a captured graph
-    records both and adds them on every replay."""
+    records both and adds them on every replay.  Under a ``FrozenCasts``
+    memo the cast goes through the memo (``FrozenCasts.cast``)."""
     if w.dtype == dtype:
         return w
+    current = _FROZEN.get()
+    if current is not None:
+        return current[0].cast(w, dtype, serving=current[1])
+    return _cast(w, dtype)
+
+
+def _cast(w, dtype: torch.dtype):
     mx = obs.METRICS
     if mx.enabled:
         mx.counter("weights.casts").inc()
         mx.counter("weights.cast_bytes").add(w.numel() * w.element_size())
     with obs.device_range("weights.cast"):
         return w.to(dtype)
+
+
+def local_tensor(t):
+    """A ``DTensor``'s local tensor (under ``no_grad`` the one it holds,
+    which an in-place write to the ``DTensor`` writes), else ``t``."""
+    return t.to_local() if is_dtensor(t) else t
+
+
+#: the current ``FrozenCasts`` memo and whether it serves (else records)
+_FROZEN: ContextVar = ContextVar("frozen_casts", default=None)
+
+
+class FrozenCasts:
+    """The weights' casts of a step whose weights do not change between
+    calls, made once and kept.
+
+    Under ``recording()`` every cast ``cast_weight`` makes is made as
+    ever (ranged and counted as a cast) and its result kept, keyed by the
+    source's storage, layout and placements and the target dtype.  Under
+    ``serving()`` a cast of a kept source returns the kept copy, the same
+    bits ``w.to(dtype)`` makes, and enqueues no kernel: it counts
+    ``weights.frozen_casts`` and adds the source bytes it did not cast to
+    ``weights.frozen_bytes``.  A cast of a source not kept, or no longer
+    alive, is made as ever, and the cast of a tensor that did not outlive
+    the recorded step is not kept.  The copies live as long as the memo;
+    the sources are held weakly (a view's by its base, whose version
+    counter it shares), so the memo keeps no weight alive.
+
+    ``stale()`` says whether a source, or one of ``watch``, has been
+    written in place since it was recorded, or freed.  A ``DTensor``'s
+    source is its local tensor, whose version counter a write through
+    ``to_local()`` moves and a write to the ``DTensor`` does not: pass
+    ``DTensor`` parameters as ``watch``.  A write through ``.data`` moves
+    no version counter, and goes unseen."""
+
+    def __init__(self, watch=()):
+        self._kept: dict = {}       # key -> (weak ref to the source, copy)
+        self._also = [weakref.ref(t) for t in watch]
+        self._refs: list = []       # what stale() reads, as recorded
+        self._versions: list = []
+
+    @contextmanager
+    def recording(self):
+        token = _FROZEN.set((self, False))
+        try:
+            yield self
+        finally:
+            _FROZEN.reset(token)
+            # a cast of a tensor the step made (a gathered shard) cannot
+            # be served again: dropped with its copy
+            self._kept = {k: e for k, e in self._kept.items()
+                          if e[0]() is not None}
+            self._refs = [ref for ref, _ in self._kept.values()] + self._also
+            self._versions = [r()._version for r in self._refs]
+
+    @contextmanager
+    def serving(self):
+        token = _FROZEN.set((self, True))
+        try:
+            yield self
+        finally:
+            _FROZEN.reset(token)
+
+    def cast(self, w, dtype: torch.dtype, serving: bool):
+        t = local_tensor(w)
+        key = (t.device, t.data_ptr(), t.shape, t.stride(), w.dtype, dtype,
+               getattr(w, "placements", None))
+        if serving:
+            hit = self._kept.get(key)
+            if hit is None or hit[0]() is None:
+                return _cast(w, dtype)
+            mx = obs.METRICS
+            if mx.enabled:
+                mx.counter("weights.frozen_casts").inc()
+                mx.counter("weights.frozen_bytes").add(
+                    w.numel() * w.element_size())
+            return hit[1]
+        out = _cast(w, dtype)
+        if key not in self._kept:
+            self._kept[key] = (weakref.ref(t if t._base is None
+                                           else t._base), out)
+        return out
+
+    @property
+    def nbytes(self) -> int:
+        """The device bytes the kept copies hold (a ``DTensor``'s local
+        shard)."""
+        return sum(local_tensor(c).numel() * c.element_size()
+                   for _, c in self._kept.values())
+
+    def stale(self) -> bool:
+        try:
+            return [r()._version for r in self._refs] != self._versions
+        except AttributeError:      # a source was freed
+            return True
+
+
+def cast_bound(params, dtype: torch.dtype) -> tuple[int, int]:
+    """(all, largest): the bytes, in ``dtype``, of every floating
+    parameter of ``params`` (a ``Transformer``) that is not in ``dtype``,
+    a ``DTensor``'s local shard: an upper bound on what a ``FrozenCasts``
+    memo of its steps keeps, and its largest copy."""
+    sizes = [local_tensor(p).numel() * dtype.itemsize
+             for p in params.parameters()
+             if p.is_floating_point() and p.dtype != dtype]
+    return sum(sizes), max(sizes, default=0)
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,7 @@ is the caller's checkpointed swap, as in the reference).
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 from dataclasses import dataclass, field
 from typing import Any, Callable, Optional
 
@@ -55,8 +56,10 @@ import torch
 from repro_torch import obs
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels._build import add_launches, capture_graph
+from repro_torch.models import layers as L
 from repro_torch.models.model import Model
 from repro_torch.obs.span import Span
+from repro_torch.parallel.sharding import is_dtensor
 from repro_torch.telemetry.dvfs import LiveUtilization
 from repro_torch.telemetry.energy import (IDLE_PHASE, INFRA_TENANT,
                                           DecodeEnergyMeter)
@@ -75,6 +78,24 @@ def make_decode_step(model: Model, rules=None):
     def decode_step(params, batch, cache):
         return model.decode_step(params, batch, cache, rules)
     return decode_step
+
+
+def _freeze(params, dtype: torch.dtype, cache: list,
+            dev: torch.device) -> Optional[L.FrozenCasts]:
+    """A memo for ``params``' casts to ``dtype`` where ``dev``'s free
+    memory, the allocator's cache emptied, holds them with a decode step's
+    warm-up to spare (``DecodeGraph``); else None."""
+    total, largest = L.cast_bound(params, dtype)
+    if total == 0:
+        return None
+    warm = sum(L.local_tensor(v).numel() * v.element_size()
+               for c in cache for v in c.values())
+    torch.cuda.empty_cache()
+    free, _ = torch.cuda.mem_get_info(dev)
+    if free < total + warm + largest:
+        return None
+    return L.FrozenCasts(watch=[p for p in params.parameters()
+                                if is_dtensor(p)])
 
 
 class DecodeGraph:
@@ -96,13 +117,30 @@ class DecodeGraph:
     the cache keeps each ``DTensor``'s placements, and the capture makes
     the mesh's communicators first (``kernels._build.capture_graph``).
 
+    Serving never writes its weights, so the graph casts them once: the
+    warm-up runs under a ``models.layers.FrozenCasts`` memo that records
+    and keeps each weight's cast to the compute dtype, and the capture
+    under the same memo serving, so that the graph's GEMMs and kernels
+    read the kept copies and a replay casts nothing (``frozen``, the memo;
+    ``frozen_bytes``, the device bytes its copies hold, freed with the
+    graph).  It freezes only where the device's free memory, the
+    allocator's cache emptied, holds the copies (at most every floating
+    parameter not in the compute dtype, in it) with the warm-up's own
+    peak to spare: its copy of the cache, and the largest copy again for
+    the step's transient tensors.  Otherwise the graph casts at every
+    replay, as an eager step does (``frozen`` None, ``frozen_bytes`` 0).
+    ``stale()`` says whether a frozen weight has since been written in
+    place, which a replay would not see: the graph's owner captures
+    again.
+
     A replay makes no call to a kernel's Python launcher, so the graph
     counts the launches its capture recorded (``launches``, per
     ``CudaKernel``) and adds them to each kernel's count on every replay;
     the capture's own recorded launches ran nothing and are not counted.
     So too what the capture recorded for ``repro_torch.obs``
-    (``recorded``: the counters its Python bumped, ``weights.cast_bytes``
-    and ``weights.casts``, and, when device ranges were on, its ranges
+    (``recorded``: the counters its Python bumped, ``weights.frozen_casts``
+    and ``weights.frozen_bytes`` or, unfrozen, ``weights.casts`` and
+    ``weights.cast_bytes``, and, when device ranges were on, its ranges
     ``decode.step`` and those nested in it), handed on at every replay;
     None when tracing was off, and then a replay does nothing more.
     ``capture_ms`` is the capture's wall time (the warm-up apart);
@@ -113,22 +151,32 @@ class DecodeGraph:
         dev = tokens.device
         step = make_decode_step(model, rules)
         batch = {"tokens": tokens, "pos": pos}
+        frozen = self.frozen = _freeze(params, L.cdtype(model.plan), cache,
+                                       dev)
         # a DTensor's clone is a DTensor at the same placements
         warm = [{k: v.clone() for k, v in c.items()} for c in cache]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        with torch.cuda.stream(side), torch.no_grad():
+        with torch.cuda.stream(side), torch.no_grad(), \
+                nullcontext() if frozen is None else frozen.recording():
             step(params, batch, warm)
         torch.cuda.current_stream(dev).wait_stream(side)
         torch.cuda.synchronize(dev)
         del warm
+        self.frozen_bytes = 0 if frozen is None else frozen.nbytes
 
         @torch.no_grad()
         def logits():
-            return step(params, batch, cache)[0]
+            with nullcontext() if frozen is None else frozen.serving():
+                return step(params, batch, cache)[0]
         (self.graph, self.logits, self.launches, self.capture_ms,
          self.pool_bytes, self.recorded) = capture_graph(
             logits, dev, None if rules is None else rules.mesh)
+
+    def stale(self) -> bool:
+        """Whether a weight whose cast the graph froze has been written in
+        place since."""
+        return self.frozen is not None and self.frozen.stale()
 
     def replay(self) -> torch.Tensor:
         if self.recorded is not None:
@@ -394,13 +442,14 @@ class ServeLoop:
     def capture(self) -> Optional[DecodeGraph]:
         """On ``cuda``, the decode step's graph for the loop's current
         ``model`` and ``params``: captured at the first call, and again
-        after a caller has swapped either one.  None on the CPU, where the
-        step runs eagerly."""
+        after a caller has swapped either one or written in place to a
+        weight whose cast the graph froze (``DecodeGraph.stale``).  None
+        on the CPU, where the step runs eagerly."""
         if self.device.type != "cuda":
             return None
         key = self._graph_for
         if key is None or key[0] is not self.model \
-                or key[1] is not self.params:
+                or key[1] is not self.params or self.graph.stale():
             self.graph = self._graph_for = None   # free the old pool first
             self.graph = DecodeGraph(self.model, self.params, self.cache,
                                      self._tok_buf, self._pos_buf)
